@@ -1,0 +1,12 @@
+"""paddle_ray_tpu_torch -- the PyTorch / CUDA port of ``paddle_ray_tpu``.
+
+Module paths and names mirror the JAX package so each piece has an obvious
+counterpart; inside, it is ordinary PyTorch.  The first slice serves GPT
+models through the paged continuous-batching :class:`ServingEngine`, with a
+hand-written CUDA kernel (``ops/csrc/paged_attention.cu``) for ragged paged
+attention.  Entry points run on the CUDA device unless the caller passes
+``device="cpu"``, where every kernel's plain PyTorch version runs instead.
+"""
+from .device import default_device, resolve_device
+
+__all__ = ["default_device", "resolve_device"]

@@ -1,0 +1,4 @@
+"""Models of the port."""
+from .gpt import (GPT, GPT_CONFIGS, GPTConfig, build_gpt, gpt_config)
+
+__all__ = ["GPT", "GPT_CONFIGS", "GPTConfig", "build_gpt", "gpt_config"]

@@ -1,0 +1,113 @@
+"""The port stands alone: ``paddle_ray_tpu_torch`` and ``chip_smoke.py``
+import neither JAX nor anything of the JAX package, import ``triton``
+nowhere at module level, import without JAX installed, and run on the
+CPU only when asked to by name."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "paddle_ray_tpu_torch")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imports(tree, module_level_only=False):
+    """Absolute module names imported in ``tree`` (optionally only by
+    statements outside any function body)."""
+    names = []
+    stack = list(tree.body) if module_level_only else [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+        if module_level_only and isinstance(
+                node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        stack.extend(ast.iter_child_nodes(node))
+    return names
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "paddle_ray_tpu")
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    sources = _sources()
+    assert len(sources) > 10
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        bad = [n for n in _imports(tree) if _forbidden(n)]
+        assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_triton_is_never_imported_at_module_level():
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        bad = [n for n in _imports(tree, module_level_only=True)
+               if n.split(".")[0] == "triton"]
+        assert not bad, f"{os.path.relpath(path, REPO)} imports triton"
+
+
+def test_package_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "import paddle_ray_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(k == 'paddle_ray_tpu' or k.startswith("
+        "'paddle_ray_tpu.') for k in sys.modules)\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
+        proc.stdout + proc.stderr
+
+
+def test_cuda_is_the_default_device(monkeypatch):
+    from paddle_ray_tpu_torch import default_device
+    from paddle_ray_tpu_torch.models import build_gpt
+    from paddle_ray_tpu_torch.serving import ServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(num_layers=1, hidden_size=32, num_heads=4, vocab_size=64,
+                 max_seq_len=32)
+    with pytest.raises(RuntimeError):
+        default_device()
+    with pytest.raises(RuntimeError):
+        build_gpt("gpt3-125m", **small)
+    model = build_gpt("gpt3-125m", device="cpu", **small)
+    with pytest.raises(RuntimeError):
+        ServingEngine(model, page_size=8, max_batch=1)
+    eng = ServingEngine(model, page_size=8, max_batch=1, device="cpu")
+    rid = eng.submit(np.arange(5), 3)
+    assert len(eng.run()[rid]) == 3
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Without a card the script exits non-zero before printing any
+    result line."""
+    code = ("import torch, runpy, sys\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "sys.argv = ['chip_smoke.py']\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
