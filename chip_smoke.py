@@ -11,17 +11,34 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 2. build   -- builds every kernel source under
    ``paddle_ray_tpu_torch/ops/csrc/`` with ``nvcc`` (one process per
    source, all started together).
-3. kernel  -- each kernel against its plain PyTorch version at the shapes
-   the serving path gives it (float32 ``atol=1e-4``, bfloat16
-   ``atol=2e-2``, null page poisoned), timed with CUDA events beside its
-   bound and one PyTorch library call on the same inputs.
-4. serve   -- GPT-3 350m (bf16, random weights from seed 0) served by the
+3. kernel  -- the paged-attention kernel against its plain PyTorch
+   version at the shapes the serving path gives it (float32 ``atol=1e-4``,
+   bfloat16 ``atol=2e-2``, null page poisoned), timed with CUDA events
+   beside its bound and one PyTorch library call on the same inputs.
+4. flash_kernel -- the three flash-attention kernels (forward, dq, dk/dv)
+   against their plain versions on the same inputs: the training shape
+   (B 8, S 1024, H 16, D 64, bf16, causal), float32 causal and full, GQA,
+   head_dim 128.  Forward within ``atol`` 1e-4 (float32) / 2e-2
+   (bfloat16); gradients within ``max|err| / max|ref|`` 1e-4 / 2e-2.
+   Timed beside the bound, the plain version and
+   ``scaled_dot_product_attention``.
+5. serve   -- GPT-3 350m (bf16, random weights from seed 0) served by the
    port's ``ServingEngine`` through the 12-request mixed-length workload
    of ``bench.py:bench_serving``; every request must return its full
    budget, and the paged-attention kernel must have been launched once
    per layer per step.
-5. check   -- two requests through an engine on a float32 copy of the
+6. check   -- two requests through an engine on a float32 copy of the
    weights, against greedy decoding by plain ``GPT.forward``.
+7. train   -- the training main path of ``bench.py``'s headline: GPT-3
+   350m (bf16 parameters, flash attention, remat off, seq 1024, batch 8
+   of ``(ids, ids)``), ``AdamW(1e-4)`` through ``build_train_step``, 2
+   warm-up and 10 timed steps; every loss finite, the last below the
+   first, each flash kernel launched 24 times a step; then one step under
+   ``torch.profiler``.
+8. train_check -- a 4-layer float32 model of GPT-3 350m's width (B 2,
+   S 512) built twice from one set of weights, flash kernels against
+   plain dense attention: step-1 gradients within ``max|err| / max|ref|``
+   1e-3 per parameter, three ``AdamW(1e-4)`` losses within ``rtol`` 1e-3.
 
 Then the card's name and power limit (as ``nvidia-smi`` prints them), the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -38,6 +55,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
@@ -50,6 +68,11 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 MODEL = "gpt3-350m"
 PAGE, MAX_BATCH, SEED = 64, 8, 0
+# bench.py's headline training run: batch 8 of seq 1024, AdamW(1e-4)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 1e-4
+WARMUP_STEPS, TIMED_STEPS = 2, 10
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 
 
 def emit(phase: str, **fields) -> None:
@@ -74,6 +97,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_rows(prof):
+    """(name, device us, calls) of the device-side kernel events of a
+    ``torch.profiler`` run only: the CPU op rows repeat their kernels'
+    device time, and the user-annotation rows (``torch.optim``'s
+    ``Optimizer.step#...``) span it."""
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+
+
+def annotation_spans(prof):
+    """(name, us) of the user-annotated ranges on the device timeline:
+    from the first kernel launched inside the range to the end of the
+    last, gaps included."""
+    return [(e.key, e.device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and getattr(e, "is_user_annotation", False)]
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +297,125 @@ def phase_kernel() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 4. the main path: serving gpt3-350m
+# 4. the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+# name, B, S, H, Hkv, D, dtype, causal; the first is the training path's
+FLASH_CASES = (
+    ("train_bf16", TRAIN_BATCH, TRAIN_SEQ, 16, 16, 64, torch.bfloat16, True),
+    ("causal_f32", 2, 512, 16, 16, 64, torch.float32, True),
+    ("full_f32", 2, 512, 16, 16, 64, torch.float32, False),
+    ("gqa_hkv4_f32", 2, 512, 16, 4, 64, torch.float32, True),
+    ("d128_bf16", 2, 512, 8, 8, 128, torch.bfloat16, True),
+)
+
+
+def _flash_bound(kind, b, s, h, hkv, d, dtype, causal) -> dict:
+    """The least time for one kernel's work at this shape: its products
+    (forward 2, dq 3, dk/dv 4 ``[S, D] x [D, S]``-shaped ones, each 2 *
+    pairs * D operations per head, pairs the visible (row, key) pairs)
+    over the peak for the inputs' type, against its inputs and outputs
+    read and written once over the HBM rate; the larger of the two."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    ops = 2 * products * pairs * d * b * h
+    es = torch.tensor([], dtype=dtype).element_size()
+    nq, nkv, row = b * s * h * d * es, b * s * hkv * d * es, b * h * s * 4
+    n_bytes = {"fwd": 2 * nq + 2 * nkv + row,             # q k v -> o lse
+               "dq": 3 * nq + 2 * nkv + 2 * row,          # q k v do lse delta -> dq
+               "dkv": 2 * nq + 4 * nkv + 2 * row}[kind]   # q k v do lse delta -> dk dv
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
+def phase_flash_kernel() -> dict:
+    import torch.nn.functional as F
+    from paddle_ray_tpu_torch.ops.flash_attention import (
+        _fold_heads, flash_backward_dkv, flash_backward_dkv_plain,
+        flash_backward_dq, flash_backward_dq_plain, flash_forward,
+        flash_forward_plain)
+    results = {}
+    for name, b, s, h, hkv, d, dtype, causal in FLASH_CASES:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED)
+        shape_q, shape_kv = (b, s, h, d), (b, s, hkv, d)
+        q, do = (torch.randn(shape_q, generator=g, device="cuda").to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(shape_kv, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        qf, kf, vf, dof = (_fold_heads(t) for t in (q, k, v, do))
+        kw = dict(causal=causal, scale=1.0 / d ** 0.5)
+        tol = TOL[dtype]
+
+        o, lse = flash_forward(qf, kf, vf, **kw)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_forward_plain(qf, kf, vf, **kw)
+        delta = (o_ref.float() * dof.float()).sum(-1)
+        bwd = (qf, kf, vf, dof, lse_ref, delta)
+        dq = flash_backward_dq(*bwd, **kw)
+        dk, dv = flash_backward_dkv(*bwd, **kw)
+        torch.cuda.synchronize()
+        dq_ref = flash_backward_dq_plain(*bwd, **kw)
+        dk_ref, dv_ref = flash_backward_dkv_plain(*bwd, **kw)
+        err = {"fwd": max(float((o.float() - o_ref.float()).abs().max()),
+                          float((lse - lse_ref).abs().max())),
+               "dq": float((dq.float() - dq_ref.float()).abs().max()),
+               "dkv": max(float((dk.float() - dk_ref.float()).abs().max()),
+                          float((dv.float() - dv_ref.float()).abs().max()))}
+        rel = {"dq": _rel_err(dq, dq_ref),
+               "dkv": max(_rel_err(dk, dk_ref), _rel_err(dv, dv_ref))}
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (o, lse, dq, dk, dv))
+        if not (finite and err["fwd"] <= tol and rel["dq"] <= tol
+                and rel["dkv"] <= tol):
+            raise AssertionError(f"flash {name}: kernel vs plain: forward "
+                                 f"max_abs_err {err['fwd']}, gradient "
+                                 f"rel_err {rel} (tolerance {tol})")
+
+        # yardstick: SDPA on [B, H, S, D] (the moves and the GQA
+        # repetition are not timed); its backward is fwd+bwd minus fwd
+        rep = h // hkv
+        qh, doh = (t.transpose(1, 2).contiguous() for t in (q, do))
+        kh, vh = (t.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+                  for t in (k, v))
+        sdpa = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
+            *a, is_causal=causal, scale=kw["scale"])
+        lib_fwd = time_ms(lambda: sdpa(qh, kh, vh))
+        leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+        lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa(*leaves), leaves, doh))
+        r = {
+            "fwd": {"ms": time_ms(lambda: flash_forward(qf, kf, vf, **kw)),
+                    "plain_ms": time_ms(lambda: flash_forward_plain(
+                        qf, kf, vf, **kw), iters=5),
+                    "library_ms": lib_fwd},
+            "dq": {"ms": time_ms(lambda: flash_backward_dq(*bwd, **kw)),
+                   "plain_ms": time_ms(lambda: flash_backward_dq_plain(
+                       *bwd, **kw), iters=5),
+                   "library_ms": lib_fwd_bwd - lib_fwd},
+            "dkv": {"ms": time_ms(lambda: flash_backward_dkv(*bwd, **kw)),
+                    "plain_ms": time_ms(lambda: flash_backward_dkv_plain(
+                        *bwd, **kw), iters=5),
+                    "library_ms": lib_fwd_bwd - lib_fwd},
+        }
+        for kind in r:
+            r[kind].update(max_abs_err=err[kind], **_flash_bound(
+                kind, b, s, h, hkv, d, dtype, causal))
+            if kind in rel:
+                r[kind]["rel_err"] = rel[kind]
+        results[name] = r
+        emit("flash_kernel", case=name, shape=[b, s, h, d], h_kv=hkv,
+             dtype=str(dtype), causal=causal, tol=tol,
+             library="scaled_dot_product_attention (dq and dkv entries: "
+                     "its backward, for the two kernels together)", **r)
+        del q, k, v, do, qf, kf, vf, dof, qh, kh, vh, doh, leaves
+    return results
+
+
+# ---------------------------------------------------------------------------
+# 5. the serving path: gpt3-350m
 # ---------------------------------------------------------------------------
 def bench_serving_workload(span: int):
     """``bench.py:bench_serving``'s mixed-length workload: 11 short chats
@@ -300,7 +467,7 @@ def phase_serve(model) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 5. correctness of the main path on the card
+# 6. correctness of the serving path on the card
 # ---------------------------------------------------------------------------
 def phase_check(model) -> None:
     """Two requests through an engine on a float32 copy of the weights
@@ -341,18 +508,170 @@ def phase_check(model) -> None:
     del eng, m32
 
 
+# ---------------------------------------------------------------------------
+# 7. the training path: gpt3-350m
+# ---------------------------------------------------------------------------
+def _flash_counters():
+    from paddle_ray_tpu_torch.ops.flash_attention import (
+        flash_backward_dkv, flash_backward_dq, flash_forward)
+    return dict(zip(FLASH_KERNELS, (flash_forward, flash_backward_dq,
+                                    flash_backward_dkv)))
+
+
+def phase_train() -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    # bench.py builds the model with max_seq_len = seq
+    model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
+                      attn_impl="flash", remat=False, max_seq_len=TRAIN_SEQ,
+                      generator=g)
+    cfg = model.cfg
+    ts = build_train_step(model, AdamW(TRAIN_LR), gpt_loss_fn)
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+    batch = (ids, ids)
+    counters = _flash_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses = [ts.step(batch) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [ts.step(batch) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses not finite and falling: "
+                             f"{losses}")
+    for n, count in launches.items():
+        if count != cfg.num_layers * steps:
+            raise AssertionError(f"{n} launched {count} times in {steps} "
+                                 f"steps of {cfg.num_layers} layers")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TIMED_STEPS / dt
+    # bench.py's count: 6 N + 12 L H S FLOP per token, against the bf16 peak
+    flops_per_token = (6 * n_params
+                       + 12 * cfg.num_layers * cfg.hidden_size * TRAIN_SEQ)
+    step_ms = 1e3 * dt / TIMED_STEPS
+    out = {"tokens_per_s": tokens_per_s, "step_ms": step_ms,
+           "mfu": tokens_per_s * flops_per_token
+           / PEAK_OPS_PER_S[torch.bfloat16],
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches}
+    emit("train", model=MODEL, dtype="bfloat16", attn_impl="flash",
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, optimizer=f"AdamW({TRAIN_LR})",
+         steps=steps, timed_steps=TIMED_STEPS, n_params=n_params,
+         flops_per_token=flops_per_token, losses=losses, **out)
+
+    # one more step under the profiler: where a step's device time goes
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ts.step(batch)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    device_ms = sum(t for _, t, _ in rows) / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    emit("train_profile", steps=1, step_ms_unprofiled=step_ms,
+         device_ms=device_ms, device_idle_share=1.0 - device_ms / step_ms,
+         kernels_launched=sum(c for _, _, c in rows),
+         flash_ms=sum(t for k, t, _ in rows if "flash_" in k) / 1e3,
+         top_kernels=[{"name": k[:90], "ms": t / 1e3, "calls": c}
+                      for k, t, c in top],
+         annotated_spans=[{"name": k, "ms": t / 1e3}
+                          for k, t in annotation_spans(prof)])
+    del ts, model
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. correctness of the training path on the card
+# ---------------------------------------------------------------------------
+def phase_train_check() -> None:
+    """A 4-layer float32 model of gpt3-350m's width, built twice from one
+    set of weights: flash kernels against plain dense attention."""
+    from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    b, s = 2, 512
+    models = {}
+    for impl in ("flash", "dense"):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 1)
+        models[impl] = build_gpt(MODEL, device="cuda", dtype=torch.float32,
+                                 num_layers=4, max_seq_len=s, remat=False,
+                                 attn_impl=impl, generator=g)
+    ids = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, models["flash"].cfg.vocab_size, (b, s))).to("cuda")
+    grads = {}
+    for impl, m in models.items():
+        gpt_loss_fn(m, (ids, ids)).backward()
+        grads[impl] = {n: p.grad.clone() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+    grad_err = {n: _rel_err(grads["flash"][n], want)
+                for n, want in grads["dense"].items()}
+    worst = max(grad_err, key=grad_err.get)
+    if grad_err[worst] > 1e-3:
+        raise AssertionError(f"train_check: grad of {worst} off by "
+                             f"{grad_err[worst]} (max|err|/max|ref|)")
+    losses = {}
+    for impl, m in models.items():
+        ts = build_train_step(m, AdamW(TRAIN_LR), gpt_loss_fn)
+        losses[impl] = [float(ts.step((ids, ids))) for _ in range(3)]
+    if not np.allclose(losses["flash"], losses["dense"], rtol=1e-3, atol=0):
+        raise AssertionError(f"train_check: losses {losses}")
+    emit("train_check", dtype="float32", layers=4, batch=b, seq=s,
+         max_grad_rel_err=grad_err[worst], worst_param=worst,
+         losses=losses, grad_tol=1e-3, loss_rtol=1e-3)
+    del models, grads
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     smi = phase_device()
     from paddle_ray_tpu_torch.models import build_gpt
     phase_build()
     kernel = phase_kernel()
+    flash = phase_flash_kernel()
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
                       generator=g)
     serve = phase_serve(model)
     phase_check(model)
+    del model
+    torch.cuda.empty_cache()
+    train = phase_train()
+    phase_train_check()
     main_case = kernel["decode_2048_bf16"]
+    train_case = flash["train_bf16"]
+    flash_entries = [{
+        "name": name,
+        "route": "cuda",
+        "source": "paddle_ray_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": f"paddle_ray_tpu/ops/flash_attention.py:{line}",
+        "tpu_kernel": body,
+        "launches": train["launches"][name],
+        "max_abs_err": train_case[kind]["max_abs_err"],
+        "ms": train_case[kind]["ms"],
+        "plain_ms": train_case[kind]["plain_ms"],
+        "bound_ms": train_case[kind]["bound_ms"],
+        "bound_by": train_case[kind]["bound_by"],
+        "library_ms": train_case[kind]["library_ms"],
+        "shape": "bf16 causal, B 8, S 1024, H 16, D 64"
+                 + ("" if kind == "fwd" else "; library_ms is SDPA's "
+                    "backward, for dq and dk/dv together"),
+    } for name, kind, line, body in zip(
+        FLASH_KERNELS, ("fwd", "dq", "dkv"), (76, 135, 186),
+        ("_fwd_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"))]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "paged_ragged_attention",
@@ -370,7 +689,7 @@ def main() -> None:
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": "bf16 decode, 8 slots x 2048 tokens, h=16, d=64, page 64",
-    }]}), flush=True)
+    }] + flash_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

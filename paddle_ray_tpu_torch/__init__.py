@@ -4,7 +4,10 @@ Module paths and names mirror the JAX package so each piece has an obvious
 counterpart; inside, it is ordinary PyTorch.  The first slice serves GPT
 models through the paged continuous-batching :class:`ServingEngine`, with a
 hand-written CUDA kernel (``ops/csrc/paged_attention.cu``) for ragged paged
-attention.  Entry points run on the CUDA device unless the caller passes
+attention.  The second trains them on one device
+(:func:`parallel.build_train_step` with :class:`optimizer.AdamW` and
+:func:`models.gpt_loss_fn`), with hand-written CUDA kernels for flash
+attention forward and backward (``ops/csrc/flash_attention.cu``).  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``, where every kernel's plain PyTorch version runs instead.
 """
 from .device import default_device, resolve_device

@@ -4,9 +4,11 @@
 Same configuration table, same module tree and parameter names (so a JAX
 state dict maps over key for key, see :mod:`..weights`), same arithmetic:
 pre-LN blocks, fused QKV laid out ``[heads, (q|k|v), dim]``, tanh GELU,
-float32 LayerNorm, tied LM head.  This slice serves: the forward pass runs
-without dropout, and the MoE FFN, remat and layer scanning have no
-counterpart yet.
+float32 LayerNorm, tied LM head, and the causal-LM loss.  Attention is
+dense or flash (the CUDA kernels of :mod:`..ops.flash_attention`); remat
+wraps each block in ``torch.utils.checkpoint``.  Dropout, the MoE FFN,
+chunked cross-entropy, the ``"dots"`` remat policies and the multi-device
+attention schemes raise :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -15,18 +17,25 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core import dtypes as _dt
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.layers import LayerNorm
-from ..parallel.tp import (ColumnParallelLinear, RowParallelLinear,
-                           VocabParallelEmbedding, normal_parameter)
+from ..ops.flash_attention import flash_attention
+from ..parallel.tp import (ColumnParallelLinear, ParallelCrossEntropy,
+                           RowParallelLinear, VocabParallelEmbedding,
+                           normal_parameter)
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPT", "GPTEmbedding",
            "GPTAttention", "GPTMLP", "GPTBlock", "GPTHead", "build_gpt",
-           "rotary_sincos", "apply_rotary"]
+           "gpt_loss_fn", "rotary_sincos", "apply_rotary",
+           "sequence_parallel_attention"]
+
+# attention schemes of the JAX package that need several devices
+_MULTI_DEVICE_ATTN = ("ring", "ring_flash", "ulysses")
 
 
 @dataclasses.dataclass
@@ -41,11 +50,23 @@ class GPTConfig:
     activation: str = "gelu"
     use_rotary: bool = False          # False -> learned position embeddings
     rope_theta: float = 10000.0
+    attn_impl: str = "dense"          # dense | flash (ring | ring_flash | ulysses: not ported)
     tie_embeddings: bool = True
+    remat: bool = True                # torch.utils.checkpoint each block
+    remat_policy: str = "none"        # "none"; "dots" | "dots_attn": not ported
+    # accepted for config parity; the blocks always run as a plain loop
+    # (the JAX package's lax.scan does the same arithmetic)
+    scan_layers: bool = True
     init_std: float = 0.02
     ln_epsilon: float = 1e-5
     dtype: Any = None                 # parameter dtype (default float32)
-    moe_num_experts: int = 0          # MoE FFN: not ported yet
+    # MoE FFN: not ported yet (0 experts -> dense FFN)
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_gate: str = "gshard"
+    moe_aux_weight: float = 1e-2
+    ce_chunk: int = 0                 # chunked cross-entropy: not ported yet
 
     @property
     def head_dim(self) -> int:
@@ -103,6 +124,29 @@ def apply_rotary(x: torch.Tensor, sin: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Attention dispatch
+# ---------------------------------------------------------------------------
+def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, impl: str = "dense",
+                                causal: bool = True,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """Route ``[B, S, H, D]`` attention to the dense path or the flash
+    kernels.  The ring and Ulysses schemes shard the sequence over
+    devices and are not ported."""
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "dense":
+        return F.scaled_dot_product_attention(q, k, v, causal=causal,
+                                              scale=scale)
+    if impl in _MULTI_DEVICE_ATTN:
+        raise NotImplementedError(
+            f"attn_impl={impl!r} is multi-GPU sequence parallelism, not "
+            f"ported yet")
+    raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+# ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
 class GPTEmbedding(nn.Module):
@@ -152,7 +196,8 @@ class GPTAttention(nn.Module):
             sin, cos = rotary_sincos(s, cfg.head_dim, cfg.rope_theta,
                                      device=x.device)
             q, k = apply_rotary(q, sin, cos), apply_rotary(k, sin, cos)
-        o = F.scaled_dot_product_attention(q, k, v, causal=True)
+        o = sequence_parallel_attention(q, k, v, impl=cfg.attn_impl,
+                                        causal=True)
         return self.out(o.reshape(b, s, cfg.hidden_size))
 
 
@@ -188,9 +233,15 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(cfg, device=device, dtype=dtype,
                           generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_with_aux(self, x: torch.Tensor):
+        """``(y, aux)``; a dense FFN's aux loss is a float32 zero."""
         h = x + self.attn(self.ln1(x))
-        return h + self.mlp(self.ln2(h))
+        y = h + self.mlp(self.ln2(h))
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, _ = self.forward_with_aux(x)
+        return y
 
 
 class GPTHead(nn.Module):
@@ -228,11 +279,7 @@ class GPT(nn.Module):
         super().__init__()
         if cfg.hidden_size % cfg.num_heads:
             raise ValueError("num_heads must divide hidden_size")
-        if cfg.is_moe:
-            raise NotImplementedError("MoE GPT blocks are not ported yet")
-        if cfg.dropout > 0.0:
-            raise NotImplementedError(
-                "dropout > 0 is a training feature; the port serves only")
+        _check_config(cfg)
         device = resolve_device(device)
         dtype = _dt.canonicalize_dtype(cfg.dtype)
         if generator is None:
@@ -244,6 +291,7 @@ class GPT(nn.Module):
         self.blocks = nn.ModuleList([GPTBlock(cfg, **kw)
                                      for _ in range(cfg.num_layers)])
         self.head = GPTHead(cfg, **kw)
+        self.loss_helper = ParallelCrossEntropy()
 
     @property
     def device(self) -> torch.device:
@@ -257,11 +305,71 @@ class GPT(nn.Module):
         return (self.embedding.word_embeddings.weight
                 if self.cfg.tie_embeddings else None)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        h = self.embedding(ids)
+    def _remat_wrap(self, fn):
+        """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and
+        grad is on (policy ``"none"``: the block's activations are all
+        recomputed in the backward); ``fn`` itself otherwise."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return fn
+        return lambda *a: torch.utils.checkpoint.checkpoint(
+            fn, *a, use_reentrant=False)
+
+    def _run_blocks(self, h: torch.Tensor):
+        fwd = self._remat_wrap(lambda blk, x: blk.forward_with_aux(x))
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for blk in self.blocks:
-            h = blk(h)
-        return self.head(h, self._embed_weight())
+            h, a = fwd(blk, h)
+            aux = aux + a
+        return h, aux
+
+    def _hidden_states(self, ids: torch.Tensor):
+        """Embedding + blocks -> (pre-head hidden, aux)."""
+        return self._run_blocks(self.embedding(ids))
+
+    def forward_with_aux(self, ids: torch.Tensor, rng=None):
+        """``(logits [B, S, V], aux)``.  ``rng`` is the JAX signature's
+        dropout key; with dropout 0 it is unused."""
+        h, aux = self._hidden_states(ids)
+        return self.head(h, self._embed_weight()), aux
+
+    def forward(self, ids: torch.Tensor, rng=None) -> torch.Tensor:
+        logits, _ = self.forward_with_aux(ids, rng)
+        return logits
+
+    def loss(self, ids: torch.Tensor, labels: torch.Tensor, rng=None,
+             ignore_index: int = -100) -> torch.Tensor:
+        """Mean causal-LM loss over the labels that are not
+        ``ignore_index``: ``sum(per_tok * valid) / max(sum(valid), 1)``,
+        float32."""
+        logits, _ = self.forward_with_aux(ids, rng)
+        per_tok = self.loss_helper(logits, labels)              # [B, S]
+        valid = (labels != ignore_index).to(per_tok.dtype)
+        denom = torch.clamp(valid.sum(), min=1.0)
+        return (per_tok * valid).sum() / denom
+
+
+def _check_config(cfg: GPTConfig) -> None:
+    """Raise on what the port does not run yet."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE GPT blocks are not ported yet")
+    if cfg.dropout > 0.0:
+        raise NotImplementedError(
+            "dropout > 0 is not ported yet: its masks wait for a port of "
+            "JAX's threefry random bits")
+    if cfg.attn_impl in _MULTI_DEVICE_ATTN:
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is multi-GPU sequence "
+            f"parallelism, not ported yet")
+    if cfg.attn_impl not in ("dense", "flash"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if cfg.remat and cfg.remat_policy != "none":
+        if cfg.remat_policy in ("dots", "dots_attn"):
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported yet")
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    if cfg.ce_chunk > 0:
+        raise NotImplementedError("chunked cross-entropy (ce_chunk > 0) "
+                                  "is not ported yet")
 
 
 def build_gpt(cfg_or_name, *, device=None, dtype=None,
@@ -277,3 +385,10 @@ def build_gpt(cfg_or_name, *, device=None, dtype=None,
            else dataclasses.replace(cfg_or_name, **overrides))
     with torch.no_grad():
         return GPT(cfg, device=device, generator=generator)
+
+
+def gpt_loss_fn(model: GPT, batch, rng=None) -> torch.Tensor:
+    """``loss_fn`` for :func:`..parallel.api.build_train_step`.
+    ``batch = (ids, labels)``."""
+    ids, labels = batch
+    return model.loss(ids, labels, rng)

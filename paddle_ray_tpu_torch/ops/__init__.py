@@ -1,8 +1,13 @@
 """Kernels of the port: each hand-written for Hopper, with its plain
 PyTorch version beside it."""
+from .flash_attention import (flash_attention, flash_backward,
+                              flash_backward_dkv, flash_backward_dq,
+                              flash_forward)
 from .paged_attention import (DEFAULT_PAGE_SIZE, paged_decode_attention,
                               paged_ragged_attention,
                               paged_ragged_attention_plain)
 
-__all__ = ["DEFAULT_PAGE_SIZE", "paged_decode_attention",
-           "paged_ragged_attention", "paged_ragged_attention_plain"]
+__all__ = ["DEFAULT_PAGE_SIZE", "flash_attention", "flash_backward",
+           "flash_backward_dkv", "flash_backward_dq", "flash_forward",
+           "paged_decode_attention", "paged_ragged_attention",
+           "paged_ragged_attention_plain"]

@@ -15,7 +15,8 @@ from torch import nn
 from ..nn import functional as F
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "normal_parameter"]
+           "VocabParallelEmbedding", "ParallelCrossEntropy",
+           "normal_parameter"]
 
 
 def normal_parameter(shape, std: float, *, device, dtype,
@@ -67,3 +68,26 @@ class VocabParallelEmbedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.weight)
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Softmax cross-entropy over the vocabulary (vocab-sharded under TP;
+    whole at degree 1).  ``forward(logits [..., V], labels [...]) ->
+    per-token loss [...]`` in float32: a max-shifted log-sum-exp minus the
+    label's logit.  Labels are clipped into ``[0, V)`` before the gather so
+    ``ignore_index`` never indexes, and ignored rows are 0."""
+
+    def __init__(self, *, ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        lf = logits.float()
+        m = lf.amax(-1, keepdim=True)
+        logz = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+        idx = labels.long().clamp(0, lf.shape[-1] - 1)
+        target = torch.gather(lf, -1, idx[..., None])[..., 0]
+        loss = logz - target
+        valid = labels != self.ignore_index
+        return torch.where(valid, loss, torch.zeros_like(loss))

@@ -1,5 +1,6 @@
-"""The port stands alone: ``paddle_ray_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package, import ``triton``
+"""The port stands alone: ``paddle_ray_tpu_torch``, ``chip_smoke.py`` and
+the port's tools (``tools/torch_*.py``) import neither JAX nor anything of
+the JAX package, import ``triton``
 nowhere at module level, import without JAX installed, and run on the
 CPU only when asked to by name."""
 import ast
@@ -16,7 +17,9 @@ PKG = os.path.join(REPO, "paddle_ray_tpu_torch")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tools", "torch_serve_profile.py"),
+           os.path.join(REPO, "tools", "torch_kernel_bounds.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -83,7 +86,9 @@ def test_package_imports_without_jax():
 
 def test_cuda_is_the_default_device(monkeypatch):
     from paddle_ray_tpu_torch import default_device
-    from paddle_ray_tpu_torch.models import build_gpt
+    from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
     from paddle_ray_tpu_torch.serving import ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     small = dict(num_layers=1, hidden_size=32, num_heads=4, vocab_size=64,
@@ -98,6 +103,14 @@ def test_cuda_is_the_default_device(monkeypatch):
     eng = ServingEngine(model, page_size=8, max_batch=1, device="cpu")
     rid = eng.submit(np.arange(5), 3)
     assert len(eng.run()[rid]) == 3
+    # training: a model needs device="cpu" here; the step then runs there
+    with pytest.raises(RuntimeError):
+        build_gpt("gpt3-125m", attn_impl="flash", **small)
+    ts = build_train_step(build_gpt("gpt3-125m", device="cpu",
+                                    attn_impl="flash", **small),
+                          AdamW(1e-3), gpt_loss_fn)
+    ids = torch.arange(16).reshape(2, 8)
+    assert ts.step((ids, ids)).device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -25,7 +25,6 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,15 +43,6 @@ def _engine(model):
     for t0, n in cs.bench_serving_workload(model.cfg.max_seq_len):
         eng.submit(r.randint(0, model.cfg.vocab_size, (t0,)), n)
     return eng
-
-
-def _kernel_rows(prof):
-    """(name, device us, calls) of the device-side kernel events only (the
-    CPU op rows repeat their kernels' device time)."""
-    return [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
 
 
 def _windows(model, profiled: bool):
@@ -79,7 +69,7 @@ def _windows(model, profiled: bool):
             wall_s = time.perf_counter() - t0
         out[name] = {"wall_ms_per_step": 1e3 * wall_s / WINDOW,
                      "active_slots": eng.active,
-                     "rows": _kernel_rows(prof) if profiled else None}
+                     "rows": cs.kernel_rows(prof) if profiled else None}
     eng.run()
     return out
 
