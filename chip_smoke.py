@@ -13,8 +13,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    source, all started together).
 3. kernel  -- the paged-attention kernel against its plain PyTorch
    version at the shapes the serving path gives it (float32 ``atol=1e-4``,
-   bfloat16 ``atol=2e-2``, null page poisoned), timed with CUDA events
-   beside its bound and one PyTorch library call on the same inputs.
+   bfloat16 ``atol=2e-2``, null page poisoned), over pools in the model's
+   dtype and int8 ones (page 32/64/128, head_dim 64/128, GQA), timed with
+   CUDA events beside its bound and one PyTorch library call on the same
+   inputs.
 4. flash_kernel -- the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the same inputs: the training shape
    (B 8, S 1024, H 16, D 64, bf16, causal), float32 causal and full, GQA,
@@ -22,20 +24,43 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    (bfloat16); gradients within ``max|err| / max|ref|`` 1e-4 / 2e-2.
    Timed beside the bound, the plain version and
    ``scaled_dot_product_attention``.
-5. serve   -- GPT-3 350m (bf16, random weights from seed 0) served by the
+5. decode_kernel -- the decode kernels against their plain versions:
+   fused decode attention at B 8, h 16, d 64 over the 512-row cache of
+   ``generate()`` (pos 0, 127, 255, 383; bfloat16, float32 and int8), and
+   ``int8_stream_matmul`` at gpt3-350m's decode shapes (8 rows x 1024->3072,
+   1024->1024, 1024->4096, 4096->1024, the 1024->50304 head), float32 and
+   N = 97; each timed beside its bound and one library call.
+6. serve   -- GPT-3 350m (bf16, random weights from seed 0) served by the
    port's ``ServingEngine`` through the 12-request mixed-length workload
    of ``bench.py:bench_serving``; every request must return its full
    budget, and the paged-attention kernel must have been launched once
    per layer per step.
-6. check   -- two requests through an engine on a float32 copy of the
+7. check   -- two requests through an engine on a float32 copy of the
    weights, against greedy decoding by plain ``GPT.forward``.
-7. train   -- the training main path of ``bench.py``'s headline: GPT-3
+8. serve_int8 -- the same workload with ``kv_cache_dtype="int8"``, every
+   other request sampled (temperature 0.8, top_k 50, top_p 0.95, fixed
+   seeds); full budgets, the int8 paged kernel launched once per layer per
+   step.  Four sampled requests with 8-token prompts served by a fresh
+   engine and in reverse order by another draw the same tokens; the
+   workload's first four sampled requests resubmitted alone report the
+   share of their tokens equal to the 12-request run's.
+9. generate -- ``bench.py``'s two generation rows: gpt3-350m, batch 8,
+   prompt 128, 256 new tokens, (a) bf16 ``generate()`` and (b)
+   ``quantize_for_decode`` + ``kv_cache_dtype="int8"``; one warm-up and two
+   timed calls each, with launch counts per call, then a short call of each
+   under ``torch.profiler``.
+10. generate_check -- a 4-layer float32 model of GPT-3 350m's width: the
+   kernels' greedy tokens against ``fused_attention=False`` (dense and
+   int8 KV) and the paged layout against the dense one, equal up to a step
+   where the reference's top-2 logit gap is below 1e-3, and the threefry
+   bits of 4,096 (seed, position) keys equal on the card and the CPU.
+11. train  -- the training main path of ``bench.py``'s headline: GPT-3
    350m (bf16 parameters, flash attention, remat off, seq 1024, batch 8
    of ``(ids, ids)``), ``AdamW(1e-4)`` through ``build_train_step``, 2
    warm-up and 10 timed steps; every loss finite, the last below the
    first, each flash kernel launched 24 times a step; then one step under
    ``torch.profiler``.
-8. train_check -- a 4-layer float32 model of GPT-3 350m's width (B 2,
+12. train_check -- a 4-layer float32 model of GPT-3 350m's width (B 2,
    S 512) built twice from one set of weights, flash kernels against
    plain dense attention: step-1 gradients within ``max|err| / max|ref|``
    1e-3 per parameter, three ``AdamW(1e-4)`` losses within ``rtol`` 1e-3.
@@ -80,15 +105,26 @@ def emit(phase: str, **fields) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` (ms), with the 50 MB L2 flushed
-    before every timed launch: the serving path reads each layer's pages
-    cold."""
+    """Median CUDA-event time of ``fn`` (ms) on the device, with the 50 MB
+    L2 flushed before every timed launch: the serving path reads each
+    layer's pages cold.  A device-side sleep longer than the host's
+    enqueue of ``fn`` sits before the start event, so the events bracket
+    the device work alone and not the Python around it (a kernel of a few
+    microseconds would otherwise time its wrapper)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # at most 1.98 GHz on an H100 SXM: this many cycles last 2x the enqueue
+    sleep_cycles = int(2 * max(host_s, 50e-6) * 1.98e9)
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -171,22 +207,32 @@ def phase_build() -> None:
 # 3. kernel against its plain version
 # ---------------------------------------------------------------------------
 def _attention_case(name, *, dtype, width, q_lens, lengths, h_q=16,
-                    h_kv=16, d=64, blocks=32, seed=0):
-    """Inputs at the serving path's shapes: 8 slots, pages of 64 rows
-    scattered over a 1 + 8 * 32 page pool, page 0 poisoned."""
+                    h_kv=16, d=64, blocks=32, page=PAGE, q8=False, seed=0):
+    """Inputs at the serving path's shapes: 8 slots, pages of ``page`` rows
+    scattered over a 1 + 8 * ``blocks`` page pool, page 0 poisoned.  With
+    ``q8`` the pool is int8 per (token, head), as the engine writes it."""
+    from paddle_ray_tpu_torch.models.generation import _kv_quant
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     b = len(q_lens)
     n = 1 + b * blocks
-    k = torch.randn(n, PAGE, h_kv, d, generator=g, device="cuda")
-    v = torch.randn(n, PAGE, h_kv, d, generator=g, device="cuda")
-    k[0] = 1e4
-    v[0] = 1e4
+    k = torch.randn(n, page, h_kv, d, generator=g, device="cuda")
+    v = torch.randn(n, page, h_kv, d, generator=g, device="cuda")
     perm = torch.randperm(n - 1, generator=g, device="cuda") + 1
     table = perm.reshape(b, blocks).to(torch.int32)
     q = torch.randn(b, width, h_q, d, generator=g, device="cuda")
-    return dict(name=name, q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
-                table=table,
+    if q8:
+        (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
+        for t in (kq, vq):
+            t[0] = 127
+        for t in (ks, vs):
+            t[0] = 1e4
+        pool = (kq, ks[..., 0], vq, vs[..., 0])
+    else:
+        k[0] = 1e4
+        v[0] = 1e4
+        pool = (k.to(dtype), v.to(dtype))
+    return dict(name=name, q=q.to(dtype), pool=pool, table=table,
                 lengths=torch.tensor(lengths, dtype=torch.int32,
                                      device="cuda"),
                 q_lens=torch.tensor(q_lens, dtype=torch.int32,
@@ -195,17 +241,19 @@ def _attention_case(name, *, dtype, width, q_lens, lengths, h_q=16,
 
 def _attention_bound(c) -> dict:
     """The least time for this call's work: bytes (q and out once, the K/V
-    rows the live slots own once, table and lengths) over the HBM rate,
-    and 4 * (visible keys) * h_q * d operations over the peak for the
-    inputs' type; the larger of the two."""
-    q, k = c["q"], c["k"]
+    rows the live slots own once -- int8 values plus a float32 scale per
+    row and head for an int8 pool --, table and lengths) over the HBM rate,
+    and 4 * (visible keys) * h_q * d operations over the peak for q's type;
+    the larger of the two."""
+    q, pool = c["q"], c["pool"]
     es = q.element_size()
     _, _, h_q, d = q.shape
-    h_kv = k.shape[2]
+    h_kv = pool[0].shape[2]
+    row_bytes = (d + 4 if len(pool) == 4 else d * es) * h_kv
     lengths = c["lengths"].tolist()
     q_lens = c["q_lens"].tolist()
     rows = sum(ln for ln, ql in zip(lengths, q_lens) if ln > 0 and ql > 0)
-    n_bytes = (2 * q.numel() * es + 2 * rows * h_kv * d * es
+    n_bytes = (2 * q.numel() * es + 2 * rows * row_bytes
                + c["table"].numel() * 4 + 2 * len(lengths) * 4)
     keys = sum(ln - ql + i + 1 for ln, ql in zip(lengths, q_lens)
                for i in range(ql) if ln > 0)
@@ -219,11 +267,17 @@ def _attention_bound(c) -> dict:
 
 def _sdpa_inputs(c):
     """The same K/V gathered into contiguous ``[B, h, T, d]`` (outside the
-    timed call) and the ragged causal mask as a boolean ``[B, 1, C, T]``."""
-    q, k, v, table = c["q"], c["k"], c["v"], c["table"]
+    timed call; an int8 pool dequantised) and the ragged causal mask as a
+    boolean ``[B, 1, C, T]``."""
+    q, pool, table = c["q"], c["pool"], c["table"]
     b, width, h_q, d = q.shape
-    h_kv = k.shape[2]
-    t_len = table.shape[1] * PAGE
+    _, page, h_kv, _ = pool[0].shape
+    if len(pool) == 4:
+        k = (pool[0].float() * pool[1][..., None]).to(q.dtype)
+        v = (pool[2].float() * pool[3][..., None]).to(q.dtype)
+    else:
+        k, v = pool
+    t_len = table.shape[1] * page
     kd = k[table.long()].reshape(b, t_len, h_kv, d).transpose(1, 2)
     vd = v[table.long()].reshape(b, t_len, h_kv, d).transpose(1, 2)
     rep = h_q // h_kv
@@ -244,7 +298,6 @@ def phase_kernel() -> dict:
     import torch.nn.functional as F
     from paddle_ray_tpu_torch.ops.paged_attention import (
         paged_ragged_attention, paged_ragged_attention_plain)
-    scale = 1.0 / 64 ** 0.5
     decode = dict(width=8, q_lens=[1] * 7 + [0],
                   lengths=[1, 63, 64, 65, 700, 2048, 1500, 0])
     mixed = dict(width=128, q_lens=[128, 1, 1, 1, 1, 1, 1, 0],
@@ -260,13 +313,26 @@ def phase_kernel() -> dict:
             _attention_case(f"mixed_{tag}", dtype=dtype, **mixed),
             _attention_case(f"mixed_gqa_{tag}", dtype=dtype, h_kv=8,
                             **mixed),
+            _attention_case(f"decode_q8_{tag}", dtype=dtype, q8=True,
+                            **decode),
+            _attention_case(f"mixed_gqa_q8_{tag}", dtype=dtype, h_kv=8,
+                            q8=True, **mixed),
         ]
-    cases.append(_attention_case("decode_2048_bf16", dtype=torch.bfloat16,
-                                 **decode_2048))
+    cases += [
+        _attention_case("decode_q8_page32_d128_bf16", dtype=torch.bfloat16,
+                        q8=True, page=32, d=128, h_q=8, h_kv=8, blocks=64,
+                        **decode),
+        _attention_case("decode_gqa_q8_page128_f32", dtype=torch.float32,
+                        q8=True, page=128, h_kv=8, blocks=16, **decode),
+        _attention_case("decode_2048_bf16", dtype=torch.bfloat16,
+                        **decode_2048),
+        _attention_case("decode_2048_q8_bf16", dtype=torch.bfloat16,
+                        q8=True, **decode_2048),
+    ]
     results = {}
     for c in cases:
-        args = (c["q"], (c["k"], c["v"]), c["table"], c["lengths"],
-                c["q_lens"])
+        scale = 1.0 / c["q"].shape[-1] ** 0.5
+        args = (c["q"], c["pool"], c["table"], c["lengths"], c["q_lens"])
         got = paged_ragged_attention(*args, scale=scale)
         torch.cuda.synchronize()
         want = paged_ragged_attention_plain(*args, scale=scale)
@@ -280,7 +346,7 @@ def phase_kernel() -> dict:
                 raise AssertionError(f"{c['name']}: slot {b} pad rows not 0")
         qs, kd, vd, mask = _sdpa_inputs(c)
         r = {
-            "max_abs_err": err, "tol": tol,
+            "max_abs_err": err, "tol": tol, "q8": len(c["pool"]) == 4,
             "ms": time_ms(lambda: paged_ragged_attention(*args, scale=scale)),
             "plain_ms": time_ms(lambda: paged_ragged_attention_plain(
                 *args, scale=scale), iters=5),
@@ -289,8 +355,10 @@ def phase_kernel() -> dict:
             **_attention_bound(c),
         }
         results[c["name"]] = r
+        pool = c["pool"]
         emit("kernel", kernel="paged_ragged_attention", case=c["name"],
-             shape=list(c["q"].shape), h_kv=c["k"].shape[2],
+             shape=list(c["q"].shape), page=pool[0].shape[1],
+             h_kv=pool[0].shape[2], kv_dtype=str(pool[0].dtype),
              lengths=c["lengths"].tolist(), q_lens=c["q_lens"].tolist(), **r)
         del qs, kd, vd, mask
     return results
@@ -415,7 +483,159 @@ def phase_flash_kernel() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 5. the serving path: gpt3-350m
+# 5. the decode kernels against their plain versions
+# ---------------------------------------------------------------------------
+# generate()'s cache for prompt 128 + 256 new tokens, aligned to its 256-row
+# block; the positions its decode steps attend up to
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 128, 256
+DEC_CACHE_T = 512
+DEC_POSITIONS = (0, 127, 255, 383)
+# gpt3-350m's decode linears (K, N, has bias) and the tied LM head
+DEC_LINEARS = (("qkv", 1024, 3072, True), ("out", 1024, 1024, True),
+               ("fc1", 1024, 4096, True), ("fc2", 4096, 1024, True),
+               ("head", 1024, 50304, False))
+
+
+def _decode_attention_bound(b, h, n_live, d, dtype, q8) -> dict:
+    """Least time: q and out once, the live K/V rows once (int8: values
+    plus a float32 scale per row), 4 * rows * d operations per (b, h)
+    over the peak for q's type."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    row = d + 4 if q8 else d * es
+    n_bytes = 2 * b * h * d * es + 2 * b * h * n_live * row
+    ops = 4 * b * h * n_live * d
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
+def _matmul_bound(b, k, n, dtype, bias) -> dict:
+    """Least time: x, the int8 weight, the scales (and bias) read once, the
+    output written once; 2 * B * K * N operations over the peak for x's
+    type."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = b * k * es + k * n + n * 4 + (n * 4 if bias else 0) \
+        + b * n * es
+    ops = 2 * b * k * n
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
+def _decode_attention_cases():
+    import torch.nn.functional as F
+    from paddle_ray_tpu_torch.models.generation import _kv_quant
+    from paddle_ray_tpu_torch.ops.decode_attention import (
+        fused_decode_attention, fused_decode_attention_plain,
+        fused_decode_attention_q8_plain)
+    b, h, d = GEN_BATCH, 16, 64
+    scale = 1.0 / d ** 0.5
+    results = {}
+    for kind, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                        ("q8", torch.bfloat16)):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED)
+        q = torch.randn(b, h, 1, d, generator=g, device="cuda").to(dtype)
+        k = torch.randn(b, h, DEC_CACHE_T, d, generator=g, device="cuda")
+        v = torch.randn(b, h, DEC_CACHE_T, d, generator=g, device="cuda")
+        if kind == "q8":
+            (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
+            cache = (kq, ks, vq, vs)
+            plain = fused_decode_attention_q8_plain
+            kd = (kq.float() * ks).to(dtype)
+            vd = (vq.float() * vs).to(dtype)
+        else:
+            cache = (k.to(dtype), v.to(dtype))
+            plain = fused_decode_attention_plain
+            kd, vd = cache
+        for pos in DEC_POSITIONS:
+            got = fused_decode_attention(q, cache, pos, scale=scale)
+            torch.cuda.synchronize()
+            want = plain(q, cache, pos, scale=scale)
+            err = float((got.float() - want.float()).abs().max())
+            tol = TOL[dtype]
+            if not (err <= tol and torch.isfinite(got).all()):
+                raise AssertionError(f"decode attention {kind} pos {pos}: "
+                                     f"max_abs_err {err} > {tol}")
+            ks_, vs_ = (kd[:, :, :pos + 1].contiguous(),
+                        vd[:, :, :pos + 1].contiguous())
+            r = {"max_abs_err": err, "tol": tol,
+                 "ms": time_ms(lambda: fused_decode_attention(
+                     q, cache, pos, scale=scale)),
+                 "plain_ms": time_ms(lambda: plain(q, cache, pos,
+                                                   scale=scale), iters=5),
+                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                     q, ks_, vs_, scale=scale)),
+                 **_decode_attention_bound(b, h, pos + 1, d, dtype,
+                                           kind == "q8")}
+            results[f"{kind}_pos{pos}"] = r
+            emit("decode_kernel", kernel="fused_decode_attention",
+                 case=f"{kind}_pos{pos}", shape=[b, h, DEC_CACHE_T, d],
+                 q_dtype=str(dtype), cache_dtype=str(cache[0].dtype),
+                 library="scaled_dot_product_attention over [B, h, pos+1, d]"
+                 + (" (dequantised cache)" if kind == "q8" else ""), **r)
+    return results
+
+
+def _matmul_cases():
+    from paddle_ray_tpu_torch.ops.decode_matmul import (
+        int8_stream_matmul, int8_stream_matmul_plain)
+    from paddle_ray_tpu_torch.quantization import quantize_per_channel
+    cases = [(name, GEN_BATCH, k, n, bias, torch.bfloat16)
+             for name, k, n, bias in DEC_LINEARS]
+    cases += [("out_no_bias", GEN_BATCH, 1024, 1024, False, torch.bfloat16),
+              ("n97", GEN_BATCH, 1024, 97, True, torch.bfloat16),
+              ("qkv_f32", GEN_BATCH, 1024, 3072, True, torch.float32),
+              ("rows1", 1, 1024, 4096, True, torch.bfloat16),
+              ("rows128", 128, 1024, 1024, True, torch.bfloat16)]
+    results = {}
+    for name, b, k, n, with_bias, dtype in cases:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED)
+        # gpt3-350m-like magnitudes: weights N(0, 0.02), activations of
+        # unit scale (half for the 4096-wide fc2 input)
+        w = 0.02 * torch.randn(k, n, generator=g, device="cuda")
+        w_q, scale = quantize_per_channel(w, axis=1)
+        scale = scale.reshape(-1)
+        x = (torch.randn(b, k, generator=g, device="cuda")
+             * (0.5 if k > 1024 else 1.0)).to(dtype)
+        bias = (0.02 * torch.randn(n, generator=g, device="cuda")).to(dtype) \
+            if with_bias else None
+        got = int8_stream_matmul(x, w_q, scale, bias)
+        torch.cuda.synchronize()
+        want = int8_stream_matmul_plain(x, w_q, scale, bias)
+        err = float((got.float() - want.float()).abs().max())
+        tol = TOL[dtype]
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"int8_stream_matmul {name}: max_abs_err "
+                                 f"{err} > {tol}")
+
+        def library():
+            y = torch.matmul(x, w_q.to(dtype)) * scale.to(dtype)
+            return y + bias if bias is not None else y
+        r = {"max_abs_err": err, "tol": tol,
+             "ms": time_ms(lambda: int8_stream_matmul(x, w_q, scale, bias)),
+             "plain_ms": time_ms(lambda: int8_stream_matmul_plain(
+                 x, w_q, scale, bias), iters=5),
+             "library_ms": time_ms(library),
+             **_matmul_bound(b, k, n, dtype, with_bias)}
+        results[name] = r
+        emit("decode_kernel", kernel="int8_stream_matmul", case=name,
+             shape=[b, k, n], dtype=str(dtype), bias=with_bias,
+             library="torch.matmul(x, w_q.to(x.dtype)) * scale (+ bias)",
+             **r)
+    return results
+
+
+def phase_decode_kernel() -> dict:
+    return {"attention": _decode_attention_cases(),
+            "matmul": _matmul_cases()}
+
+
+# ---------------------------------------------------------------------------
+# 6. the serving path: gpt3-350m
 # ---------------------------------------------------------------------------
 def bench_serving_workload(span: int):
     """``bench.py:bench_serving``'s mixed-length workload: 11 short chats
@@ -467,7 +687,7 @@ def phase_serve(model) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 6. correctness of the serving path on the card
+# 7. correctness of the serving path on the card
 # ---------------------------------------------------------------------------
 def phase_check(model) -> None:
     """Two requests through an engine on a float32 copy of the weights
@@ -509,7 +729,292 @@ def phase_check(model) -> None:
 
 
 # ---------------------------------------------------------------------------
-# 7. the training path: gpt3-350m
+# 8. the serving path with the int8 KV pool and sampled requests
+# ---------------------------------------------------------------------------
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def _serve_requests(eng, prompts, news, sampling):
+    rids = [eng.submit(p, n, **kw)
+            for p, n, kw in zip(prompts, news, sampling)]
+    out = eng.run()
+    return [out[r] for r in rids]
+
+
+def phase_serve_int8(model) -> dict:
+    """The serving workload over an int8 KV pool, every other request
+    sampled with its own seed."""
+    from paddle_ray_tpu_torch.ops.paged_attention import (
+        paged_ragged_attention)
+    from paddle_ray_tpu_torch.serving import ServingEngine
+    cfg = model.cfg
+    workload = bench_serving_workload(cfg.max_seq_len)
+    r = np.random.RandomState(1)
+    prompts = [r.randint(0, cfg.vocab_size, (t,)) for t, _ in workload]
+    news = [n for _, n in workload]
+    sampling = [dict(SAMPLED, seed=1000 + i) if i % 2 else {}
+                for i in range(len(workload))]
+    kw = dict(page_size=PAGE, max_batch=MAX_BATCH, kv_cache_dtype="int8",
+              device=model.device)
+    eng = ServingEngine(model, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    paged_ragged_attention.launches = paged_ragged_attention.launches_q8 = 0
+    t0 = time.perf_counter()
+    out = _serve_requests(eng, prompts, news, sampling)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = paged_ragged_attention.launches_q8
+    st = eng.stats.to_dict()
+    for i, (toks, n) in enumerate(zip(out, news)):
+        if len(toks) != n:
+            raise AssertionError(f"int8 request {i} returned {len(toks)} "
+                                 f"tokens, wanted {n}")
+    if (launches == 0 or launches != cfg.num_layers * st["mixed_steps"]
+            or paged_ragged_attention.launches != 0):
+        raise AssertionError(
+            f"paged int8 kernel launched {launches} times (bf16 kernel "
+            f"{paged_ragged_attention.launches}) in {st['mixed_steps']} "
+            f"steps of {cfg.num_layers} layers")
+    # streams depend only on seed and position: four sampled requests
+    # served by a fresh engine, and in reverse order (other slots) by
+    # another, draw the same tokens.  Their prompts are 8 tokens, so every
+    # step multiplies at most 64 rows: cuBLAS's bf16 GEMMs tile larger row
+    # counts so that a row's sums depend on its place in the batch, and
+    # then a sampled token at a near tie may change with the slot.
+    r = np.random.RandomState(3)
+    same_len = [r.randint(0, cfg.vocab_size, (8,)) for _ in range(4)]
+    four = [dict(SAMPLED, seed=2000 + i) for i in range(4)]
+    fwd = _serve_requests(ServingEngine(model, **kw), same_len, [64] * 4,
+                          four)
+    rev = _serve_requests(ServingEngine(model, **kw), same_len[::-1],
+                          [64] * 4, four[::-1])[::-1]
+    for i, (a, b) in enumerate(zip(fwd, rev)):
+        if not np.array_equal(a, b):
+            first = int(np.argmax(a != b))
+            raise AssertionError(
+                f"sampled request {i} served in reverse order drew other "
+                f"tokens from position {first}: {b[:first + 4]} vs "
+                f"{a[:first + 4]}")
+    # the workload's first four sampled requests alone, in reverse order:
+    # other step shapes than the 12-request run; the share of their tokens
+    # equal to that run's is reported, not held
+    again_idx = [i for i, kw_i in enumerate(sampling) if kw_i][:4][::-1]
+    again = _serve_requests(ServingEngine(model, **kw),
+                            [prompts[i] for i in again_idx],
+                            [news[i] for i in again_idx],
+                            [sampling[i] for i in again_idx])
+    equal_share = float(np.mean(np.concatenate(
+        [toks == out[i] for i, toks in zip(again_idx, again)])))
+    first_diff = [int(np.argmax(toks != out[i])) if (toks != out[i]).any()
+                  else None for i, toks in zip(again_idx, again)]
+    greedy = [i for i, kw_i in enumerate(sampling) if not kw_i]
+    fields = {k: st[k] for k in (
+        "decode_tokens_per_s", "prefill_tokens_per_s", "p50_token_ms",
+        "p99_token_ms", "mixed_steps", "decode_tokens", "prefill_tokens",
+        "prefix_hit_tokens", "timed_decode_tokens", "timed_prefill_tokens",
+        "decode_s", "prefill_s")}
+    emit("serve_int8", model=MODEL, dtype=str(model.dtype),
+         kv_cache_dtype="int8", requests=len(out),
+         sampled=[i for i in range(len(out)) if sampling[i]],
+         sampling=SAMPLED, greedy=greedy, launches_q8=launches,
+         reverse_order_equal=True, workload_resubmitted=again_idx,
+         workload_resubmitted_equal_share=equal_share,
+         workload_resubmitted_first_diff=first_diff, wall_s=round(wall_s, 3),
+         peak_mem_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+         pool=eng.pool_stats(), **fields)
+    return {"launches": launches, **fields}
+
+
+# ---------------------------------------------------------------------------
+# 9. generate(): bench.py's two generation rows
+# ---------------------------------------------------------------------------
+def _decode_counters():
+    from paddle_ray_tpu_torch.ops.decode_attention import (
+        fused_decode_attention)
+    from paddle_ray_tpu_torch.ops.decode_matmul import int8_stream_matmul
+    return {
+        "fused_decode_attention": (fused_decode_attention, "launches"),
+        "fused_decode_attention_q8": (fused_decode_attention, "launches_q8"),
+        "int8_stream_matmul": (int8_stream_matmul, "launches"),
+    }
+
+
+def _reset(counters) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def _read(counters) -> dict:
+    return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+
+
+def phase_generate(model) -> dict:
+    """(a) bf16 ``generate()``, (b) ``quantize_for_decode`` with the int8
+    KV cache: batch 8, prompt 128, 256 new tokens, one warm-up and two
+    timed calls; every call must launch the kernels the path runs the
+    expected number of times.  Then 16 new tokens of each under
+    ``torch.profiler``, beside the same call unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_ray_tpu_torch.models import generate, quantize_for_decode
+    cfg = model.cfg
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT))).to("cuda")
+    steps = GEN_NEW - 1                   # decode steps after the prefill
+    n_layers = cfg.num_layers
+    configs = {
+        "bf16": (model, {}, {"fused_decode_attention": n_layers * steps}),
+        "int8": (quantize_for_decode(model), {"kv_cache_dtype": "int8"},
+                 {"fused_decode_attention_q8": n_layers * steps,
+                  # the prefill's LM head row, then 4 linears per layer
+                  # and the head at every decode step
+                  "int8_stream_matmul": 1 + steps * (4 * n_layers + 1)}),
+    }
+    counters = _decode_counters()
+    results, outs = {}, {}
+    for name, (m, kw, expect) in configs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        generate(m, ids, GEN_NEW, **kw)                      # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(2):
+            _reset(counters)
+            t0 = time.perf_counter()
+            out = generate(m, ids, GEN_NEW, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches = _read(counters)
+            want = {n: expect.get(n, 0) for n in counters}
+            if launches != want:
+                raise AssertionError(f"generate {name}: launches {launches}"
+                                     f", want {want}")
+        if (out.shape != (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+                or not torch.equal(out[:, :GEN_PROMPT], ids)
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size):
+            raise AssertionError(f"generate {name}: bad output {out.shape}")
+        outs[name] = out[:, GEN_PROMPT:]
+        call_s = float(np.mean(times))
+        r = {"tokens_per_s": GEN_BATCH * GEN_NEW / call_s,
+             "ms_per_token": 1e3 * call_s / GEN_NEW,
+             "call_s": times,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+             "launches_per_call": launches}
+
+        # where the time goes: a 16-token call, unprofiled then profiled
+        short = 16
+        generate(m, ids, short, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(m, ids, short, **kw)
+        torch.cuda.synchronize()
+        short_ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            generate(m, ids, short, **kw)
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof)
+        device_ms = sum(t for _, t, _ in rows) / 1e3
+        top = sorted(rows, key=lambda x: -x[1])[:10]
+        r["profile"] = {
+            "new_tokens": short, "call_ms_unprofiled": short_ms,
+            "device_ms": device_ms,
+            "device_idle_share": 1.0 - device_ms / short_ms,
+            "kernels_launched": sum(c for _, _, c in rows),
+            "top_kernels": [{"name": k[:80], "ms": t / 1e3, "calls": c}
+                            for k, t, c in top]}
+        results[name] = r
+        emit("generate", model=MODEL, config=name, batch=GEN_BATCH,
+             prompt=GEN_PROMPT, new_tokens=GEN_NEW,
+             weights="bf16" if name == "bf16" else "int8 (weight-only)",
+             kv_cache=kw.get("kv_cache_dtype", "model"), **r)
+    results["bf16_int8_equal_share"] = float(
+        (outs["bf16"] == outs["int8"]).float().mean())
+    emit("generate_agreement",
+         share_of_new_tokens_equal=results["bf16_int8_equal_share"])
+    del configs
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# 10. correctness of the decode path on the card
+# ---------------------------------------------------------------------------
+CHECK_TIE = 1e-3
+
+
+def _first_gap(model, seq, t0, j) -> float:
+    """The top-2 gap of plain ``GPT.forward``'s logits for new token ``j``
+    of ``seq`` (the smallest over the batch rows)."""
+    with torch.no_grad():
+        logits = model(seq[:, :t0 + j])[:, -1].float()
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return float((top2[:, 0] - top2[:, 1]).min())
+
+
+def _same_tokens(name, model, got, want, t0) -> dict:
+    """Greedy tokens of two paths must be equal, except from a step where
+    the reference's top-2 logit gap is below ``CHECK_TIE`` (there float32
+    sums taken in another order may flip the argmax)."""
+    diff = torch.nonzero((got != want).any(dim=0)).flatten()
+    if diff.numel() == 0:
+        return {"equal_tokens": int(got.shape[1] - t0), "near_tie_at": None}
+    j = int(diff[0]) - t0
+    gap = _first_gap(model, want, t0, j)
+    if j < 0 or gap >= CHECK_TIE:
+        raise AssertionError(f"generate_check {name}: tokens differ at new "
+                             f"token {j} where the top-2 gap is {gap}")
+    return {"equal_tokens": j, "near_tie_at": j, "gap": gap}
+
+
+def phase_generate_check() -> None:
+    """A 4-layer float32 model of gpt3-350m's width: the kernels' greedy
+    tokens against the plain chain (``fused_attention=False``) for the
+    dense cache in the model's dtype and in int8, and the paged layout
+    against the dense one; then the threefry bits of 4,096 (seed,
+    position) keys on the card against the CPU."""
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.models import build_gpt, generate
+    from paddle_ray_tpu_torch.models.generation import fold_sample_keys
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 2)
+    model = build_gpt(MODEL, device="cuda", dtype=torch.float32,
+                      num_layers=4, max_seq_len=512, generator=g)
+    b, t0, new = GEN_BATCH, 64, 32
+    ids = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
+        0, model.cfg.vocab_size, (b, t0))).to("cuda")
+    report = {}
+    for kv in ("model", "int8"):
+        kernel = generate(model, ids, new, kv_cache_dtype=kv)
+        plain = generate(model, ids, new, kv_cache_dtype=kv,
+                         fused_attention=False)
+        paged = generate(model, ids, new, kv_cache_dtype=kv,
+                         kv_layout="paged", page_size=PAGE)
+        report[f"fused_vs_plain_{kv}"] = _same_tokens(
+            f"fused vs plain ({kv} KV)", model, kernel, plain, t0)
+        report[f"paged_vs_dense_{kv}"] = _same_tokens(
+            f"paged vs dense ({kv} KV)", model, paged, kernel, t0)
+    r = np.random.RandomState(SEED + 2)
+    seeds = np.concatenate([np.asarray([0, 2 ** 31 + 5, 2 ** 32 - 1],
+                                       np.uint64),
+                            r.randint(0, 2 ** 32, 4093, dtype=np.uint64)])
+    positions = r.randint(0, 4096, 4096)
+    bits = {}
+    for dev in ("cuda", "cpu"):
+        keys = fold_sample_keys(torch.from_numpy(seeds.astype(np.int64)).to(
+            dev), torch.from_numpy(positions).to(dev))
+        bits[dev] = prng.random_bits(keys, (16,)).cpu()
+    if not torch.equal(bits["cuda"], bits["cpu"]):
+        raise AssertionError("threefry bits differ between the card and the "
+                             "CPU")
+    emit("generate_check", dtype="float32", layers=4, batch=b, prompt=t0,
+         new_tokens=new, tie=CHECK_TIE, threefry_keys=len(seeds),
+         threefry_bits_equal=True, **report)
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 11. the training path: gpt3-350m
 # ---------------------------------------------------------------------------
 def _flash_counters():
     from paddle_ray_tpu_torch.ops.flash_attention import (
@@ -593,7 +1098,7 @@ def phase_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 8. correctness of the training path on the card
+# 12. correctness of the training path on the card
 # ---------------------------------------------------------------------------
 def phase_train_check() -> None:
     """A 4-layer float32 model of gpt3-350m's width, built twice from one
@@ -635,61 +1140,115 @@ def phase_train_check() -> None:
     torch.cuda.empty_cache()
 
 
+def _entry(name, source, replaces, body, launches, case, shape,
+           max_abs_err=None) -> dict:
+    """One row of the ``kernels`` line: the main path's launches, the
+    numbers of one measured case (or of a sum of cases, as built by the
+    caller)."""
+    return {
+        "name": name, "route": "cuda",
+        "source": f"paddle_ray_tpu_torch/ops/csrc/{source}",
+        "replaces": f"paddle_ray_tpu/ops/{replaces}", "tpu_kernel": body,
+        "launches": launches,
+        "max_abs_err": (case["max_abs_err"] if max_abs_err is None
+                        else max_abs_err),
+        "ms": case["ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+        "library_ms": case["library_ms"], "shape": shape}
+
+
+def _decode_step_matmuls(matmul, n_layers) -> dict:
+    """The int8 matmul launches of one decode step of gpt3-350m (four
+    linears a layer and the tied head), their times and bounds summed."""
+    count = {"qkv": n_layers, "out": n_layers, "fc1": n_layers,
+             "fc2": n_layers, "head": 1}
+    step = {k: sum(n * matmul[c][k] for c, n in count.items())
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    t_bytes = sum(n * matmul[c]["bytes"] for c, n in count.items()) \
+        / HBM_BYTES_PER_S
+    t_ops = sum(n * matmul[c]["ops"] for c, n in count.items()) \
+        / PEAK_OPS_PER_S[torch.bfloat16]
+    step["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    step["max_abs_err"] = max(r["max_abs_err"] for r in matmul.values())
+    return step
+
+
 def main() -> None:
     smi = phase_device()
     from paddle_ray_tpu_torch.models import build_gpt
     phase_build()
     kernel = phase_kernel()
     flash = phase_flash_kernel()
+    decode = phase_decode_kernel()
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
                       generator=g)
     serve = phase_serve(model)
     phase_check(model)
+    serve_int8 = phase_serve_int8(model)
+    gen = phase_generate(model)
+    n_layers = model.cfg.num_layers
     del model
     torch.cuda.empty_cache()
+    phase_generate_check()
     train = phase_train()
     phase_train_check()
-    main_case = kernel["decode_2048_bf16"]
     train_case = flash["train_bf16"]
-    flash_entries = [{
-        "name": name,
-        "route": "cuda",
-        "source": "paddle_ray_tpu_torch/ops/csrc/flash_attention.cu",
-        "replaces": f"paddle_ray_tpu/ops/flash_attention.py:{line}",
-        "tpu_kernel": body,
-        "launches": train["launches"][name],
-        "max_abs_err": train_case[kind]["max_abs_err"],
-        "ms": train_case[kind]["ms"],
-        "plain_ms": train_case[kind]["plain_ms"],
-        "bound_ms": train_case[kind]["bound_ms"],
-        "bound_by": train_case[kind]["bound_by"],
-        "library_ms": train_case[kind]["library_ms"],
-        "shape": "bf16 causal, B 8, S 1024, H 16, D 64"
-                 + ("" if kind == "fwd" else "; library_ms is SDPA's "
-                    "backward, for dq and dk/dv together"),
-    } for name, kind, line, body in zip(
-        FLASH_KERNELS, ("fwd", "dq", "dkv"), (76, 135, 186),
-        ("_fwd_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"))]
+    flash_entries = [_entry(
+        name, "flash_attention.cu", f"flash_attention.py:{line}", body,
+        train["launches"][name], train_case[kind],
+        "bf16 causal, B 8, S 1024, H 16, D 64"
+        + ("" if kind == "fwd" else "; library_ms is SDPA's backward, for "
+           "dq and dk/dv together"))
+        for name, kind, line, body in zip(
+            FLASH_KERNELS, ("fwd", "dq", "dkv"), (76, 135, 186),
+            ("_fwd_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"))]
+    paged_err = {q8: max(r["max_abs_err"] for r in kernel.values()
+                         if r["tol"] == TOL[torch.bfloat16]
+                         and r["q8"] == q8) for q8 in (False, True)}
+    att = decode["attention"]
+    gen_launches = {k: gen[c]["launches_per_call"][k] for c, k in (
+        ("bf16", "fused_decode_attention"),
+        ("int8", "fused_decode_attention_q8"),
+        ("int8", "int8_stream_matmul"))}
+    entries = [
+        _entry("paged_ragged_attention", "paged_attention.cu",
+               "paged_attention.py:108", "_kernel", serve["launches"],
+               kernel["decode_2048_bf16"],
+               "bf16 decode, 8 slots x 2048 tokens, h=16, d=64, page 64",
+               paged_err[False]),
+        *flash_entries,
+        _entry("paged_ragged_attention_q8", "paged_attention.cu",
+               "paged_attention.py:134", "_kernel_q8",
+               serve_int8["launches"], kernel["decode_2048_q8_bf16"],
+               "int8 pool, bf16 q: decode, 8 slots x 2048 tokens, h=16, "
+               "d=64, page 64; library_ms is SDPA over the dequantised "
+               "cache", paged_err[True]),
+        _entry("fused_decode_attention", "decode_attention.cu",
+               "decode_attention.py:71", "_kernel_bf16",
+               gen_launches["fused_decode_attention"], att["bf16_pos255"],
+               "bf16, B 8, h 16, d 64, pos 255 of a 512-row cache (the "
+               "middle of generate()'s decode positions 128..382)",
+               max(r["max_abs_err"] for k, r in att.items()
+                   if k.startswith("bf16"))),
+        _entry("fused_decode_attention_q8", "decode_attention.cu",
+               "decode_attention.py:88", "_kernel_q8",
+               gen_launches["fused_decode_attention_q8"], att["q8_pos255"],
+               "int8 cache, bf16 q, B 8, h 16, d 64, pos 255 of a 512-row "
+               "cache; library_ms is SDPA over the dequantised cache",
+               max(r["max_abs_err"] for k, r in att.items()
+                   if k.startswith("q8"))),
+        _entry("int8_stream_matmul", "decode_matmul.cu",
+               "decode_matmul.py:27", "_kernel",
+               gen_launches["int8_stream_matmul"],
+               _decode_step_matmuls(decode["matmul"], n_layers),
+               "one decode step of gpt3-350m at batch 8, bf16 x: 24 x "
+               "(1024->3072, 1024->1024, 1024->4096, 4096->1024, with bias) "
+               "+ the 1024->50304 head, 97 launches summed"),
+    ]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "paged_ragged_attention",
-        "route": "cuda",
-        "source": "paddle_ray_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "paddle_ray_tpu/ops/paged_attention.py:108",
-        "tpu_kernel": "_kernel",
-        "launches": serve["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kernel.values()
-                           if r["tol"] == TOL[torch.bfloat16]),
-        "ms": main_case["ms"],
-        "kernel_ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": "bf16 decode, 8 slots x 2048 tokens, h=16, d=64, page 64",
-    }] + flash_entries}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

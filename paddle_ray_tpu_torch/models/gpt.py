@@ -293,13 +293,14 @@ class GPT(nn.Module):
         self.head = GPTHead(cfg, **kw)
         self.loss_helper = ParallelCrossEntropy()
 
+    # read off the final norm, which int8 decode copies keep as it is
     @property
     def device(self) -> torch.device:
-        return self.embedding.word_embeddings.weight.device
+        return self.head.norm.weight.device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.embedding.word_embeddings.weight.dtype
+        return self.head.norm.weight.dtype
 
     def _embed_weight(self) -> Optional[torch.Tensor]:
         return (self.embedding.word_embeddings.weight
@@ -335,6 +336,12 @@ class GPT(nn.Module):
     def forward(self, ids: torch.Tensor, rng=None) -> torch.Tensor:
         logits, _ = self.forward_with_aux(ids, rng)
         return logits
+
+    def generate(self, ids, max_new_tokens: int, **kw) -> torch.Tensor:
+        """KV-cache autoregressive decoding (see
+        :func:`.generation.generate`)."""
+        from .generation import generate
+        return generate(self, ids, max_new_tokens, **kw)
 
     def loss(self, ids: torch.Tensor, labels: torch.Tensor, rng=None,
              ignore_index: int = -100) -> torch.Tensor:

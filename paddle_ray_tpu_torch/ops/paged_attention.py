@@ -11,7 +11,11 @@ that sequence's own pages.  Query row ``i`` of sequence ``b`` sits at
 absolute position ``lengths[b] - q_lens[b] + i`` and sees exactly the keys
 at positions ``<=`` its own; GQA shares each KV head among
 ``h_q / h_kv`` query heads; masked terms weigh exactly 0, so dead slots
-and pad rows output zeros.
+and pad rows output zeros.  The pool is ``(k, v)`` in q's dtype or the
+int8 ``(k_q, k_s, v_q, v_s)`` with scales ``[num_pages, page, h_kv]``
+float32: the K scale folds into the logits after the dot, the V scale into
+the accumulation weights only (the denominator sums the plain
+exponentials), so nothing dequantized is materialized.
 
 :func:`paged_ragged_attention` launches the hand-written CUDA kernel
 (``csrc/paged_attention.cu``) for tensors on a CUDA device and runs
@@ -40,10 +44,19 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _unpack(q: torch.Tensor, pool: Tuple):
-    if len(pool) != 2:
-        raise NotImplementedError(
-            "int8 KV pools (k_q, k_s, v_q, v_s) are not ported yet")
-    k, v = pool
+    """``(k, v, k_s, v_s)``; the scales are None for a ``(k, v)`` pool."""
+    if len(pool) == 4:
+        k, k_s, v, v_s = pool
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise TypeError("an int8 pool's values must be int8")
+        for s in (k_s, v_s):
+            if s.dtype != torch.float32 or s.shape != k.shape[:3]:
+                raise TypeError(f"an int8 pool's scales must be float32 "
+                                f"{tuple(k.shape[:3])}")
+    elif len(pool) == 2:
+        (k, v), k_s, v_s = pool, None, None
+    else:
+        raise ValueError("pool is (k, v) or (k_q, k_s, v_q, v_s)")
     b, chunk, h_q, d = q.shape
     num_pages, page, h_kv, dk = k.shape
     if dk != d:
@@ -52,7 +65,7 @@ def _unpack(q: torch.Tensor, pool: Tuple):
         raise ValueError(f"h_q={h_q} not a multiple of h_kv={h_kv} (GQA)")
     if v.shape != k.shape:
         raise ValueError(f"k pool {tuple(k.shape)} != v pool {tuple(v.shape)}")
-    return k, v
+    return k, v, k_s, v_s
 
 
 def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -66,9 +79,10 @@ def paged_ragged_attention_plain(q: torch.Tensor, pool: Tuple,
                                  lengths: torch.Tensor, q_lens: torch.Tensor,
                                  *, scale: float) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_ragged_attention`: gather
-    every page of the table, mask, float32 softmax, weighted sum.  The CPU
-    path, and the yardstick the CUDA kernel is held to."""
-    k, v = _unpack(q, pool)
+    every page of the table, mask, float32 softmax, weighted sum (for an
+    int8 pool with the scale folds).  The CPU path, and the yardstick the
+    CUDA kernel is held to."""
+    k, v, k_s, v_s = _unpack(q, pool)
     b, c, h_q, d = q.shape
     _, page, h_kv, _ = k.shape
     g = h_q // h_kv
@@ -79,6 +93,9 @@ def paged_ragged_attention_plain(q: torch.Tensor, pool: Tuple,
     kg = k[table].float().reshape(b, t_len, h_kv, d)
     vg = v[table].float().reshape(b, t_len, h_kv, d)
     logits = torch.einsum("bckgd,btkd->bckgt", qf, kg)
+    if k_s is not None:                        # K scale fold
+        ksg = k_s[table].reshape(b, t_len, h_kv)
+        logits = logits * ksg.permute(0, 2, 1)[:, None, :, None, :]
     t = torch.arange(t_len, device=q.device)
     qi = torch.arange(c, device=q.device)
     ln = lengths.long()[:, None, None]
@@ -91,20 +108,24 @@ def paged_ragged_attention_plain(q: torch.Tensor, pool: Tuple,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
     l = e.sum(-1, keepdim=True)
+    if v_s is not None:                        # V scale: weights only
+        vsg = v_s[table].reshape(b, t_len, h_kv)
+        e = e * vsg.permute(0, 2, 1)[:, None, :, None, :]
     o = torch.einsum("bckgt,btkd->bckgd", e, vg)
     o = o / torch.where(l == 0, torch.ones_like(l), l)
     return o.reshape(b, c, h_q, d).to(q.dtype)
 
 
-def _check_cuda(q, k, v, page_table, lengths, q_lens) -> None:
+def _check_cuda(q, k, v, k_s, v_s, page_table, lengths, q_lens) -> None:
     dev = q.device
-    for name, t in (("k pool", k), ("v pool", v), ("page_table", page_table),
+    for name, t in (("k pool", k), ("v pool", v), ("k scales", k_s),
+                    ("v scales", v_s), ("page_table", page_table),
                     ("lengths", lengths), ("q_lens", q_lens)):
-        if t.device != dev:
+        if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    if k_s is None and (k.dtype != q.dtype or v.dtype != q.dtype):
         raise TypeError(f"pool dtype {k.dtype} != q dtype {q.dtype}")
     for name, t in (("page_table", page_table), ("lengths", lengths),
                     ("q_lens", q_lens)):
@@ -120,9 +141,11 @@ def _check_cuda(q, k, v, page_table, lengths, q_lens) -> None:
         raise ValueError(f"page_table {tuple(page_table.shape)} must be [{b}, P]")
     if lengths.shape != (b,) or q_lens.shape != (b,):
         raise ValueError(f"lengths/q_lens must be [{b}]")
-    for name, t in (("k pool", k), ("v pool", v)):
-        if not t.is_contiguous():
+    for name, t in (("k pool", k), ("v pool", v), ("k scales", k_s),
+                    ("v scales", v_s)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k pool", k), ("v pool", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
 
@@ -134,6 +157,10 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn_q8 = lib.prt_paged_ragged_attention_q8
+        fn_q8.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p])
+        fn_q8.restype = ctypes.c_int
         lib.prt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.prt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -147,7 +174,8 @@ def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
 
     q: ``[B, chunk, h_q, d]`` right-padded query chunks (``h_q`` a
     multiple of the pool's ``h_kv``); pool: ``(k, v)`` pages
-    ``[num_pages, page, h_kv, d]``; page_table: ``[B, P]`` int32 physical
+    ``[num_pages, page, h_kv, d]`` in q's dtype, or int8 ``(k_q, k_s, v_q,
+    v_s)`` with scales ``[num_pages, page, h_kv]`` float32; page_table: ``[B, P]`` int32 physical
     page per logical block -- entries up to a sequence's last block must
     be valid page ids (the serving allocator reserves page 0 as the null
     page); lengths: ``[B]`` int32 valid tokens per sequence including the
@@ -156,16 +184,16 @@ def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
     Returns ``[B, chunk, h_q, d]`` in q's dtype.
 
     On a CUDA device this launches the CUDA kernel and counts the launch
-    in ``paged_ragged_attention.launches``; on the CPU it runs
-    :func:`paged_ragged_attention_plain`.
+    in ``paged_ragged_attention.launches`` (``.launches_q8`` for an int8
+    pool); on the CPU it runs :func:`paged_ragged_attention_plain`.
     """
-    k, v = _unpack(q, pool)
+    k, v, k_s, v_s = _unpack(q, pool)
     if q.device.type == "cpu":
         return paged_ragged_attention_plain(q, pool, page_table, lengths,
                                             q_lens, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention for device {q.device}")
-    _check_cuda(q, k, v, page_table, lengths, q_lens)
+    _check_cuda(q, k, v, k_s, v_s, page_table, lengths, q_lens)
     b, chunk, h_q, d = q.shape
     _, page, h_kv, _ = k.shape
     qs = _prescale(q, scale).contiguous()
@@ -176,20 +204,30 @@ def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.prt_paged_ragged_attention(
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
-            lengths.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-            b, chunk, h_q, h_kv, d, page, table.shape[1],
-            _KERNEL_DTYPES[q.dtype], stream)
+        dims = (b, chunk, h_q, h_kv, d, page, table.shape[1],
+                _KERNEL_DTYPES[q.dtype], stream)
+        if k_s is None:
+            err = lib.prt_paged_ragged_attention(
+                qs.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+                lengths.data_ptr(), q_lens.data_ptr(), out.data_ptr(), *dims)
+        else:
+            err = lib.prt_paged_ragged_attention_q8(
+                qs.data_ptr(), k.data_ptr(), k_s.data_ptr(), v.data_ptr(),
+                v_s.data_ptr(), table.data_ptr(), lengths.data_ptr(),
+                q_lens.data_ptr(), out.data_ptr(), *dims)
     if err != 0:
         raise RuntimeError(
             f"paged_ragged_attention kernel launch failed: cudaError {err} "
             f"({lib.prt_cuda_error_string(err).decode()})")
-    paged_ragged_attention.launches += 1
+    if k_s is None:
+        paged_ragged_attention.launches += 1
+    else:
+        paged_ragged_attention.launches_q8 += 1
     return out
 
 
 paged_ragged_attention.launches = 0
+paged_ragged_attention.launches_q8 = 0
 
 
 def paged_decode_attention(q: torch.Tensor, pool: Tuple,

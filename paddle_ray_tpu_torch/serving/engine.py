@@ -1,6 +1,6 @@
 """Continuous-batching paged serving engine with chunked-prefill mixed
 steps and a cross-request prefix cache (the port of
-``paddle_ray_tpu/serving/engine.py``, synchronous greedy path).
+``paddle_ray_tpu/serving/engine.py``, synchronous path).
 
 Two layers:
 
@@ -20,11 +20,17 @@ so step shapes match the JAX engine's executable family.  The prefix
 cache (on by default) shares full KV pages across requests with a common
 prompt prefix and copies a partially matched page on write.
 
+Sampling is per request (``temperature`` / ``top_k`` / ``top_p`` /
+``seed`` on :meth:`ServingEngine.submit`) and runs on the device with
+JAX's threefry keys ``fold_in(PRNGKey(seed), position)``, so a request's
+stream depends only on its seed and its positions.  A step whose rows are
+all greedy takes the argmax alone (the same tokens, without the sampling
+work).  ``kv_cache_dtype="int8"`` keeps the pool int8 per (token, head).
+
 Where the JAX step donated the pool buffers, these steps update the pool
-tensors in place.  Not ported yet: sampling (``temperature > 0`` needs
-JAX's threefry and ``categorical`` bit for bit), async double-buffered
-dispatch, speculative decoding, cancel/deadline/preemption, fault
-injection, telemetry, the page sanitizer, TP sharding and int8 KV.
+tensors in place.  Not ported yet: async double-buffered dispatch,
+speculative decoding, cancel/deadline/preemption, fault injection,
+telemetry, the page sanitizer and TP sharding.
 """
 from __future__ import annotations
 
@@ -36,14 +42,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.generation import (_block_decode, _embed_chunk, _head_logits,
-                                 _qkv_chunk)
+from ..models.generation import (_block_decode, _block_prefill, _embed_at,
+                                 _embed_chunk, _head_logits, _kv_quant,
+                                 _qkv_chunk, fold_sample_keys, sample_tokens)
 from ..ops.paged_attention import DEFAULT_PAGE_SIZE, paged_ragged_attention
 from .page_pool import PagePool
 from .prefix_cache import PrefixCache, PrefixMatch
 
 __all__ = ["RequestStatus", "ServingEngine", "ServingStats", "RequestStats",
-           "paged_decode_step", "paged_mixed_step"]
+           "paged_decode_step", "paged_mixed_step", "paged_prefill"]
 
 _MIN_CHUNK_BUCKET = 8
 # times a pool-pressure-blocked request may rotate behind the queue
@@ -66,13 +73,45 @@ def _scatter_rows(pools: Tuple, layer: int, page_ids: torch.Tensor,
                   slots: torch.Tensor, k_t: torch.Tensor,
                   v_t: torch.Tensor) -> Tuple:
     """Write one KV row per (sequence, token) into the layer's pages, in
-    place.  Rows routed to the null page 0 are the masked writes: several
-    may hit the same row of page 0 and land in any order, which is
-    harmless there -- a live page never receives two rows at one index."""
+    place (an int8 pool takes the rows quantized per (token, head)).  Rows
+    routed to the null page 0 are the masked writes: several may hit the
+    same row of page 0 and land in any order, which is harmless there -- a
+    live page never receives two rows at one index."""
+    if len(pools) == 4:
+        for (dst_q, dst_s), x in zip((pools[:2], pools[2:]), (k_t, v_t)):
+            xq, xs = _kv_quant(x)
+            dst_q[layer, page_ids, slots] = xq
+            dst_s[layer, page_ids, slots] = xs[..., 0]
+        return pools
     k, v = pools
     k[layer, page_ids, slots] = k_t.to(k.dtype)
     v[layer, page_ids, slots] = v_t.to(v.dtype)
     return pools
+
+
+def paged_prefill(model, ids, t0: int, page_table,
+                  pools: Tuple) -> Tuple[Tuple, torch.Tensor]:
+    """One-shot prompt prefill into pages: full causal attention over
+    ``ids`` ``[B, L]`` (right-padded; ``t0`` is the true prompt length),
+    K/V rows ``t < t0`` scattered into each sequence's pages, pad rows
+    routed to the null page.  Returns ``(pools, logits [B, V])`` at the
+    last true prompt token.  The static-batch surface of
+    ``generate(kv_layout="paged")``; the engine prefills through
+    :func:`paged_mixed_step` chunks."""
+    b, length = ids.shape
+    page = pools[0].shape[2]
+    h = _embed_at(model, ids.long(), slice(0, length))
+    tpos = torch.arange(length, device=ids.device)
+    block = (tpos // page).clamp(max=page_table.shape[1] - 1)
+    page_ids = torch.where(tpos[None, :] < t0,
+                           page_table.long()[:, block],
+                           torch.zeros((), dtype=torch.long,
+                                       device=ids.device))
+    slots = (tpos % page).expand(b, length)
+    for layer, blk in enumerate(model.blocks):
+        h, k, v = _block_prefill(blk, h)        # k/v: [B, L, h_kv, d]
+        pools = _scatter_rows(pools, layer, page_ids, slots, k, v)
+    return pools, _head_logits(model, h[:, t0 - 1:t0])[:, 0]
 
 
 def paged_decode_step(model, toks, positions, lengths, page_table,
@@ -122,13 +161,21 @@ def paged_mixed_step(model, toks, positions, q_lens, lengths, page_table,
     return pools, _head_logits(model, x_last[:, None])[:, 0]
 
 
-def _mixed_step(model, toks, positions, q_lens, lengths, table,
-                pools) -> Tuple[Tuple, torch.Tensor]:
-    """The engine's serving step: the mixed forward, then the greedy
-    argmax on the device.  Returns ``(pools, tokens [S] int32)``."""
+def _mixed_step(model, toks, positions, q_lens, lengths, table, pools,
+                sampling: Optional[Tuple] = None
+                ) -> Tuple[Tuple, torch.Tensor]:
+    """The engine's serving step: the mixed forward, then the tokens on
+    the device.  ``sampling`` is ``(temps, top_ks, top_ps, seeds)``, all
+    ``[S]``, with keys ``fold_in(PRNGKey(seed), lengths)`` per row; None
+    when every row is greedy (the argmax alone, the same tokens).  Returns
+    ``(pools, tokens [S] int32)``."""
     pools, logits = paged_mixed_step(model, toks, positions, q_lens,
                                      lengths, table, pools)
-    return pools, torch.argmax(logits, dim=-1).to(torch.int32)
+    if sampling is None:
+        return pools, torch.argmax(logits, dim=-1).to(torch.int32)
+    temps, top_ks, top_ps, seeds = sampling
+    keys = fold_sample_keys(seeds, lengths)
+    return pools, sample_tokens(logits, keys, temps, top_ks, top_ps)
 
 
 def _copy_page_all_layers(src: int, dst: int, pools: Tuple) -> Tuple:
@@ -285,6 +332,10 @@ class _Request:
     max_new_tokens: int
     stats: RequestStats
     retries: int = 0                   # blocked-admission rotations
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0                      # effective seed (user's, or rid)
 
 
 @dataclasses.dataclass
@@ -325,7 +376,7 @@ class _Dispatched:
 
 
 class ServingEngine:
-    """Continuous-batching greedy decode over a paged KV pool.
+    """Continuous-batching decode over a paged KV pool.
 
     ``submit()`` enqueues prompts; ``step()`` admits what fits, runs ONE
     mixed step (decode tokens + prefill chunks packed under
@@ -333,6 +384,7 @@ class ServingEngine:
 
     Knobs: ``page_size``, ``max_batch``, ``num_pages`` (default: every slot
     at ``max_seq_len``, plus the null page), ``max_seq_len``,
+    ``kv_cache_dtype`` (``"model"``, or ``"int8"`` per (token, head)),
     ``eos_token_id``, ``chunk_size`` (max prefill tokens one slot takes
     per step; default ``2 * page_size``), ``token_budget`` (max tokens per
     step; default ``max_batch + chunk_size``), ``prefix_cache``
@@ -343,10 +395,13 @@ class ServingEngine:
     def __init__(self, model, *, page_size: int = DEFAULT_PAGE_SIZE,
                  max_batch: int = 8, num_pages: Optional[int] = None,
                  max_seq_len: Optional[int] = None,
+                 kv_cache_dtype: str = "model",
                  eos_token_id: Optional[int] = None,
                  chunk_size: Optional[int] = None,
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = True, device=None):
+        if kv_cache_dtype not in ("model", "int8"):
+            raise ValueError(f"unknown kv_cache_dtype {kv_cache_dtype!r}")
         device = resolve_device(device)
         if model.device.type != device.type or (
                 device.index is not None and model.device != device):
@@ -372,6 +427,7 @@ class ServingEngine:
             num_pages = 1 + max_batch * self.blocks_per_seq
         self.pool = PagePool(cfg.num_layers, num_pages, page_size,
                              cfg.num_heads, cfg.head_dim, dtype=model.dtype,
+                             quantized=kv_cache_dtype == "int8",
                              device=self.device)
         self.prefix = PrefixCache(self.pool) if prefix_cache else None
         self._table = np.zeros((max_batch, self.blocks_per_seq), np.int32)
@@ -390,14 +446,19 @@ class ServingEngine:
 
     # -- public surface --------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int, *,
-               temperature: float = 0.0) -> int:
-        """Enqueue a greedy request; returns its rid."""
-        if temperature < 0:
-            raise ValueError(f"bad temperature {temperature} (>= 0)")
-        if temperature > 0:
-            raise NotImplementedError(
-                "sampled decoding is not ported yet (it needs JAX's "
-                "threefry keys and categorical bit for bit); greedy only")
+               temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+               seed: Optional[int] = None) -> int:
+        """Enqueue a request; returns its rid.
+
+        ``temperature <= 0`` (the default) is greedy; ``temperature > 0``
+        samples, with optional ``top_k`` / ``top_p`` cuts, from
+        ``fold_in(PRNGKey(seed), position)`` keys -- deterministic given
+        ``seed`` (default: the rid, folded to uint32 like any seed) and
+        independent of batching and admission order."""
+        if temperature < 0 or top_k < 0 or not 0.0 < top_p <= 1.0:
+            raise ValueError(
+                f"bad sampling params: temperature={temperature} (>=0), "
+                f"top_k={top_k} (>=0), top_p={top_p} (in (0, 1])")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if len(prompt) == 0 or max_new_tokens <= 0:
             raise ValueError("need a non-empty prompt and max_new_tokens>0")
@@ -422,7 +483,11 @@ class ServingEngine:
         self._next_rid += 1
         rstats = RequestStats(rid, prompt_tokens=len(prompt),
                               submitted_t=time.perf_counter())
-        self._queue.append(_Request(rid, prompt, max_new_tokens, rstats))
+        self._queue.append(_Request(
+            rid, prompt, max_new_tokens, rstats,
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p),
+            seed=int(rid if seed is None else seed) & 0xFFFFFFFF))
         return rid
 
     @property
@@ -652,6 +717,10 @@ class ServingEngine:
         positions = np.zeros((s, width), np.int32)
         q_lens = np.zeros((s,), np.int32)
         lengths = np.zeros((s,), np.int32)
+        temps = np.zeros((s,), np.float32)
+        top_ks = np.zeros((s,), np.int32)
+        top_ps = np.ones((s,), np.float32)
+        seeds = np.zeros((s,), np.int64)
         lanes: List[_Lane] = []
         for i, take in plan:
             slot = self._slots[i]
@@ -674,15 +743,22 @@ class ServingEngine:
             positions[i, :take] = np.arange(start, end)
             q_lens[i] = take
             lengths[i] = end
+            req = slot.req
+            temps[i], top_ks[i], top_ps[i], seeds[i] = (
+                req.temperature, req.top_k, req.top_p, req.seed)
             lanes.append(lane)
         dev = self.device
         args = [torch.from_numpy(a).to(dev)
                 for a in (toks, positions, q_lens, lengths, self._table)]
+        sampling = (tuple(torch.from_numpy(a).to(dev)
+                          for a in (temps, top_ks, top_ps, seeds))
+                    if (temps > 0).any() else None)
         warm = width in self._widths_run
         self._widths_run.add(width)
         t_start = time.perf_counter()
         with torch.no_grad():
-            _, tokens = _mixed_step(self.model, *args, self.pool.arrays)
+            _, tokens = _mixed_step(self.model, *args, self.pool.arrays,
+                                    sampling)
         self.stats.mixed_steps += 1
         return _Dispatched(lanes, tokens, width, warm, t_start, n_dec, n_pre)
 

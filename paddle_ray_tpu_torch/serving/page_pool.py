@@ -3,7 +3,8 @@ port of ``paddle_ray_tpu/serving/page_pool.py``).
 
 The pool is the only KV allocation the serving engine makes: one tensor
 ``[num_layers, num_pages, page, h_kv, d]`` per operand (K and V) on the
-engine's device.  Sequences borrow whole pages and return them on
+engine's device -- or, quantized, int8 values of that shape plus float32
+per-(token, head) scales ``[num_layers, num_pages, page, h_kv]``.  Sequences borrow whole pages and return them on
 retirement, so memory in use is ``pages_in_use * page_bytes`` however
 long any one request runs.
 
@@ -35,15 +36,14 @@ __all__ = ["PagePool"]
 class PagePool:
     """Preallocated paged KV storage + host-side refcounted free list.
 
-    ``arrays`` is the ``(k, v)`` tuple of pool tensors the step functions
-    read and update in place."""
+    ``arrays`` is the tuple of pool tensors the step functions read and
+    update in place: ``(k, v)`` in ``dtype``, or ``(k_q, k_s, v_q, v_s)``
+    when ``quantized``."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
                  quantized: bool = False, device=None):
-        if quantized:
-            raise NotImplementedError("int8 KV pools are not ported yet")
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the null page)")
         self.num_layers = num_layers
@@ -51,10 +51,15 @@ class PagePool:
         self.page_size = page_size
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
-        self.quantized = False
+        self.quantized = quantized
         shape = (num_layers, num_pages, page_size, num_kv_heads, head_dim)
+        if quantized:
+            leaves = ((shape, torch.int8), (shape[:-1], torch.float32),
+                      (shape, torch.int8), (shape[:-1], torch.float32))
+        else:
+            leaves = ((shape, dtype), (shape, dtype))
         self.arrays: Tuple[torch.Tensor, ...] = tuple(
-            torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))
+            torch.zeros(sh, dtype=dt, device=device) for sh, dt in leaves)
         # LIFO free list: recently freed pages are re-issued first, which
         # is what the recycling tests need to prove stale KV cannot leak
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
@@ -179,9 +184,12 @@ class PagePool:
     @staticmethod
     def dense_bytes(batch: int, seq_len: int, num_layers: int,
                     num_kv_heads: int, head_dim: int,
-                    dtype: torch.dtype = torch.bfloat16) -> int:
+                    dtype: torch.dtype = torch.bfloat16,
+                    quantized: bool = False) -> int:
         """What a dense ``[B, h, T, d]`` cache would allocate for the
-        same shapes."""
+        same shapes (int8: a byte per value plus a float32 scale per row
+        and head)."""
         itemsize = torch.empty((), dtype=dtype).element_size()
-        return batch * seq_len * num_layers * 2 * num_kv_heads * head_dim \
-            * itemsize
+        per_tok = (2 * num_kv_heads * (head_dim + 4) if quantized
+                   else 2 * num_kv_heads * head_dim * itemsize)
+        return batch * seq_len * num_layers * per_tok

@@ -8,6 +8,13 @@ conversion is a renaming: the JAX ``ModuleList`` names its children
 ``blocks.items.{i}``, PyTorch's ``blocks.{i}``.  ``embedding.
 position_embeddings`` is a bare array in JAX and a parameter here; a tied
 head has no ``head.proj`` in either.
+
+The state of a JAX ``quantize_for_decode`` model carries across too: its
+linears hold ``weight_q`` (int8), ``scale`` and ``bias``, its embedding
+``weight_q``, ``scale`` and the pre-transposed ``weight_qT``, with the qkv
+columns already re-laid-out ``[3, h, d]``; the port builds the same int8
+modules (:func:`..models.generation.quantize_for_decode`'s structure) and
+copies the int8 values exactly.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .models.generation import _quantize_in_place
 from .models.gpt import GPT, GPTConfig
 
 __all__ = ["gpt_from_jax_state_dict", "gpt_to_jax_state_dict"]
@@ -37,30 +45,36 @@ def _to_jax_key(key: str) -> str:
 def gpt_from_jax_state_dict(cfg: GPTConfig, state: Dict[str, np.ndarray], *,
                             device, dtype=None) -> GPT:
     """A :class:`GPT` for ``cfg`` on ``device`` holding the JAX state
-    dict's weights, in ``dtype`` (default ``cfg.dtype``).  A missing or
-    unexpected key, or a shape that differs, raises."""
+    dict's weights, in ``dtype`` (default ``cfg.dtype``); a state with
+    int8 ``weight_q`` entries gives the weight-only int8 decode model.  A
+    missing or unexpected key, or a shape that differs, raises."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    given = {_to_torch_key(k): v for k, v in state.items()}
     with torch.no_grad():
         model = GPT(cfg, device=device)
-        params = dict(model.named_parameters())
-        given = {_to_torch_key(k): v for k, v in state.items()}
-        missing = sorted(set(params) - set(given))
-        unexpected = sorted(set(given) - set(params))
+        if any(k.endswith(".weight_q") for k in given):
+            _quantize_in_place(model)
+        targets = model.state_dict()
+        missing = sorted(set(targets) - set(given))
+        unexpected = sorted(set(given) - set(targets))
         if missing or unexpected:
             raise KeyError(f"state dict does not match the GPT: missing "
                            f"{missing[:8]}, unexpected {unexpected[:8]}")
-        for name, p in params.items():
-            # via float32: numpy has no bfloat16 of its own
-            arr = np.array(given[name], dtype=np.float32)
-            if arr.shape != tuple(p.shape):
+        for name, t in targets.items():
+            # int8 exactly; floats via float32 (numpy has no bfloat16)
+            arr = np.array(given[name], dtype=(
+                np.int8 if t.dtype == torch.int8 else np.float32))
+            if arr.shape != tuple(t.shape):
                 raise ValueError(f"shape mismatch for {name}: have "
-                                 f"{tuple(p.shape)}, got {arr.shape}")
-            p.copy_(torch.from_numpy(arr))
+                                 f"{tuple(t.shape)}, got {arr.shape}")
+            t.copy_(torch.from_numpy(arr))
     return model
 
 
 def gpt_to_jax_state_dict(model: GPT) -> Dict[str, np.ndarray]:
-    """The JAX-named state dict of ``model``, as float32 numpy arrays."""
-    return {_to_jax_key(name): p.detach().float().cpu().numpy()
-            for name, p in model.named_parameters()}
+    """The JAX-named state dict of ``model``: float32 numpy arrays, and
+    int8 ones for an int8 decode model's values."""
+    return {_to_jax_key(name): (t.cpu().numpy() if t.dtype == torch.int8
+                                else t.detach().float().cpu().numpy())
+            for name, t in model.state_dict().items()}

@@ -1,9 +1,10 @@
 """The port stands alone: ``paddle_ray_tpu_torch``, ``chip_smoke.py`` and
-the port's tools (``tools/torch_*.py``) import neither JAX nor anything of
-the JAX package, import ``triton``
-nowhere at module level, import without JAX installed, and run on the
-CPU only when asked to by name."""
+the port's tools (every ``tools/torch_*.py``) import neither JAX nor
+anything of the JAX package, import ``triton`` nowhere at module level,
+import without JAX installed, and run on the CPU only when asked to by
+name."""
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -17,9 +18,8 @@ PKG = os.path.join(REPO, "paddle_ray_tpu_torch")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "tools", "torch_serve_profile.py"),
-           os.path.join(REPO, "tools", "torch_kernel_bounds.py")]
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    out += glob.glob(os.path.join(REPO, "tools", "torch_*.py"))
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -67,21 +67,33 @@ def test_triton_is_never_imported_at_module_level():
         assert not bad, f"{os.path.relpath(path, REPO)} imports triton"
 
 
+def test_tools_are_found_by_glob():
+    tools = {os.path.basename(p) for p in _sources()
+             if os.path.dirname(p) == os.path.join(REPO, "tools")}
+    assert {"torch_serve_profile.py", "torch_kernel_bounds.py"} <= tools
+
+
 def test_package_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
         "import paddle_ray_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "assert not any(k == 'paddle_ray_tpu' or k.startswith("
         "'paddle_ray_tpu.') for k in sys.modules)\n"
-        "print('ok')\n")
+        "print(' '.join(sorted(names)))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", \
-        proc.stdout + proc.stderr
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    imported = set(proc.stdout.split())
+    for mod in ("core.prng", "ops.decode_attention", "ops.decode_matmul",
+                "quantization.quant", "models.generation",
+                "serving.engine"):
+        assert f"paddle_ray_tpu_torch.{mod}" in imported, mod
 
 
 def test_cuda_is_the_default_device(monkeypatch):
@@ -111,6 +123,11 @@ def test_cuda_is_the_default_device(monkeypatch):
                           AdamW(1e-3), gpt_loss_fn)
     ids = torch.arange(16).reshape(2, 8)
     assert ts.step((ids, ids)).device.type == "cpu"
+    # decoding runs where the model lives: the CPU only when built there
+    from paddle_ray_tpu_torch.models import generate, quantize_for_decode
+    out = generate(quantize_for_decode(model), ids, 3,
+                   kv_cache_dtype="int8")
+    assert out.shape == (2, 11) and out.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -4,7 +4,8 @@ The same numpy inputs go through ``paddle_ray_tpu``'s Pallas kernel (in
 interpret mode on the CPU) and ``paddle_ray_tpu_torch``'s wrapper, which
 runs its plain PyTorch version for CPU tensors: GQA ratios 1/2/4, pages
 shuffled across the pool, mixed chunk widths with dead slots, lengths at
-page boundaries, a poisoned null page.  Tolerances: float32 1e-5
+page boundaries, a poisoned null page; and the int8 pool ``(k_q, k_s, v_q,
+v_s)`` against the JAX ``_kernel_q8``.  Tolerances: float32 1e-5
 (summation order differs); bfloat16 inputs 2e-2 (the two frameworks round
 the bfloat16 intermediates at different places)."""
 import numpy as np
@@ -143,8 +144,60 @@ def test_validation():
     with pytest.raises(ValueError):        # head_dim mismatch
         paged_ragged_attention(torch.zeros(1, 1, 2, D + 2), (k, v), table,
                                ln, ql, scale=SCALE)
-    with pytest.raises(NotImplementedError):   # int8 pools: not ported
+    with pytest.raises(TypeError):         # an int8 pool of float values
         paged_ragged_attention(q, (k, k, v, v), table, ln, ql, scale=SCALE)
+    with pytest.raises(ValueError):        # neither (k, v) nor 4 leaves
+        paged_ragged_attention(q, (k, k, v), table, ln, ql, scale=SCALE)
     with pytest.raises(ValueError):        # no kernel for this device
         paged_ragged_attention(q.to("meta"), (k.to("meta"), v.to("meta")),
                                table, ln, ql, scale=SCALE)
+
+
+def _q8_pool(k, v):
+    """The pool quantized per (token, head) as the engine writes it."""
+    from paddle_ray_tpu_torch.models.generation import _kv_quant
+    kq, ks = _kv_quant(torch.from_numpy(k))
+    vq, vs = _kv_quant(torch.from_numpy(v))
+    return kq, ks[..., 0], vq, vs[..., 0]
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_int8_pool_matches_jax(group):
+    q, k, v, table, ln, ql = _inputs(70 + group, 6, 8, group, 2, 4,
+                                     MIXED_Q_LENS, MIXED_LENGTHS)
+    pool = _q8_pool(k, v)
+    pool[0][0] = 127                                # poisoned null page
+    pool[1][0] = 1e4
+    t = torch.from_numpy
+    before = paged_ragged_attention.launches_q8
+    got = paged_ragged_attention(t(q), pool, t(table), t(ln), t(ql),
+                                 scale=SCALE).numpy()
+    assert paged_ragged_attention.launches_q8 == before
+    want = np.asarray(jax_ragged(
+        jnp.asarray(q), tuple(jnp.asarray(p.numpy()) for p in pool),
+        jnp.asarray(table), jnp.asarray(ln), jnp.asarray(ql), scale=SCALE))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    assert (got[4] == 0).all()
+    for b, n in enumerate(MIXED_Q_LENS):
+        assert (got[b, n:] == 0).all(), f"pad rows of slot {b}"
+    # close to the unquantized pool's answer (int8 rounding apart)
+    full = _port(q, k, v, table, ln, ql)
+    np.testing.assert_allclose(got, full, rtol=0.05, atol=0.05)
+
+
+def test_int8_pool_bf16_queries_match_jax():
+    q, k, v, table, ln, ql = _inputs(80, 6, 8, 2, 2, 4, MIXED_Q_LENS,
+                                     MIXED_LENGTHS)
+    pool = _q8_pool(k, v)
+    t = torch.from_numpy
+    got = paged_ragged_attention(t(q).to(torch.bfloat16), pool, t(table),
+                                 t(ln), t(ql), scale=SCALE)
+    assert got.dtype == torch.bfloat16
+    want = jax_ragged(jnp.asarray(q, jnp.bfloat16),
+                      tuple(jnp.asarray(p.numpy()) for p in pool),
+                      jnp.asarray(table), jnp.asarray(ln), jnp.asarray(ql),
+                      scale=SCALE)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)

@@ -7,8 +7,13 @@ and decode token counts, prefix hits).  Mirrors ``tests/test_serving.py``
 and ``tests/test_prefix_cache.py``: chunked prefill under continuous
 batching, prefix-cache hits with copy-on-write, eos retirement, page
 recycling without stale KV, admission that waits for pool capacity, and
-the pool's accounting."""
+the pool's accounting.  The int8 KV pool must give the JAX engine's
+tokens too.  Sampled requests (per-request temperature / top-k / top-p /
+seed) must give the JAX engine's tokens up to the first position where
+they differ, and there the top two perturbed logits must lie within 1e-5
+(the frameworks' ``log`` may differ by an ulp, see ``core/prng.py``)."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -37,11 +42,12 @@ def _models(seed):
                                        device="cpu")
 
 
-def _serve(engine, prompts, news, serial=False):
-    """Submit everything (or one request per drain) and run to drain."""
+def _serve(engine, prompts, news, serial=False, sampling=None):
+    """Submit everything (or one request per drain) and run to drain;
+    ``sampling`` gives each request's submit keywords."""
     rids, out = [], {}
-    for p, n in zip(prompts, news):
-        rids.append(engine.submit(p, n))
+    for i, (p, n) in enumerate(zip(prompts, news)):
+        rids.append(engine.submit(p, n, **(sampling[i] if sampling else {})))
         if serial:
             out.update(engine.run())
     out.update(engine.run())
@@ -170,9 +176,102 @@ def test_submit_validation():
         eng.submit(np.zeros((60,), np.int32), 10)    # exceeds max_seq_len
     with pytest.raises(ValueError):
         eng.submit(np.asarray([1, 97, 2]), 4)        # id past the vocab
-    with pytest.raises(NotImplementedError):        # sampling: not ported
-        eng.submit(np.zeros((4,), np.int32), 4, temperature=0.7)
+    for bad in (dict(temperature=-0.1), dict(top_k=-1), dict(top_p=0.0),
+                dict(top_p=1.5)):                    # bad sampling params
+        with pytest.raises(ValueError):
+            eng.submit(np.zeros((4,), np.int32), 4, **bad)
+    with pytest.raises(ValueError):
+        ServingEngine(tm, device="cpu", kv_cache_dtype="fp8")
     small = ServingEngine(tm, device="cpu", page_size=8, max_batch=1,
                           num_pages=3)
     with pytest.raises(ValueError):
         small.submit(np.zeros((30,), np.int32), 8)   # can never fit
+
+
+def test_int8_kv_pool_matches_jax():
+    jm, tm = _models(67)
+    r = np.random.RandomState(5)
+    prompts = [r.randint(0, 97, (n,)) for n in (5, 19, 3, 12)]
+    eng, _ = _pair_run(jm, tm, prompts, [6, 4, 7, 5], page_size=8,
+                       max_batch=3, chunk_size=8, kv_cache_dtype="int8")
+    k_q, k_s, v_q, v_s = eng.pool.arrays
+    assert k_q.dtype == torch.int8 and k_s.dtype == torch.float32
+    assert k_s.shape == k_q.shape[:-1]
+    ref = JaxPagePool(2, 9, 8, 4, 8, quantized=True)
+    pool = PagePool(2, 9, 8, 4, 8, quantized=True, device="cpu")
+    assert pool.page_bytes == ref.page_bytes
+    assert PagePool.dense_bytes(2, 64, 2, 4, 8, quantized=True) == \
+        JaxPagePool.dense_bytes(2, 64, 2, 4, 8, quantized=True)
+
+
+def _first_diff_is_tie(tm, prompt, got, want, kw):
+    """Where the port's and the JAX engine's sampled streams first differ,
+    the top two perturbed logits (the request's own key at that position)
+    must lie within 1e-5."""
+    diff = np.nonzero(got != want)[0]
+    if diff.size == 0:
+        return True
+    j = int(diff[0])
+    seq = np.concatenate([prompt, want[:j]])
+    with torch.no_grad():
+        logits = tm(torch.from_numpy(seq[None]).long())[0, -1].float()
+    pos = len(seq)
+    key = jax.random.fold_in(jax.random.PRNGKey(kw["seed"]), pos)
+    lg = logits.numpy() / kw["temperature"]
+    if kw.get("top_k"):
+        lg = np.where(lg < np.sort(lg)[-kw["top_k"]], -np.inf, lg)
+    if kw.get("top_p", 1.0) < 1.0:
+        srt = np.sort(lg)[::-1]
+        e = np.exp(srt - srt[0])
+        cum = np.cumsum(e / e.sum())
+        lg = np.where(lg < srt[min(np.sum(cum < kw["top_p"]), len(srt) - 1)],
+                      -np.inf, lg)
+    scores = np.asarray(jax.random.gumbel(key, lg.shape)) + lg
+    top2 = np.sort(scores)[-2:]
+    return top2[1] - top2[0] <= 1e-5
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["model", "int8"])
+def test_sampled_requests_match_jax(kv_cache_dtype):
+    jm, tm = _models(68)
+    r = np.random.RandomState(6)
+    prompts = [r.randint(0, 97, (n,)) for n in (6, 13, 4, 9, 11)]
+    news = [7, 5, 8, 6, 4]
+    sampling = [dict(temperature=0.8, top_k=20, top_p=0.9, seed=11),
+                {},                                   # greedy among them
+                dict(temperature=1.2, seed=2 ** 32 + 7),
+                dict(temperature=0.7, top_p=0.8, seed=5),
+                dict(temperature=1.0, top_k=3)]       # seed: the rid
+    kw = dict(page_size=8, max_batch=3, chunk_size=8,
+              kv_cache_dtype=kv_cache_dtype)
+    port = ServingEngine(tm, device="cpu", **kw)
+    ref = JaxServingEngine(jm, **kw)
+    got = _serve(port, prompts, news, sampling=sampling)
+    want = _serve(ref, prompts, news, sampling=sampling)
+    np.testing.assert_array_equal(got[1], want[1])    # the greedy request
+    for i, s in enumerate(sampling):
+        assert len(got[i]) == news[i]
+        if s:
+            eff = dict(s, seed=(s.get("seed", i)) & 0xFFFFFFFF)
+            assert _first_diff_is_tie(tm, prompts[i], got[i], want[i],
+                                      eff), (i, got[i], want[i])
+    ps, js = port.stats.to_dict(), ref.stats.to_dict()
+    assert {k: ps[k] for k in SCHEDULE_KEYS} == \
+        {k: js[k] for k in SCHEDULE_KEYS}
+
+
+def test_sampled_streams_depend_only_on_seed_and_position():
+    """Resubmitted in reverse order to a fresh engine (other slots, other
+    co-batched requests), sampled requests draw the same tokens."""
+    _, tm = _models(69)
+    r = np.random.RandomState(7)
+    prompts = [r.randint(0, 97, (n,)) for n in (5, 12, 8, 3)]
+    sampling = [dict(temperature=0.9, top_k=30, top_p=0.95, seed=100 + i)
+                for i in range(4)]
+    kw = dict(page_size=8, max_batch=2, chunk_size=8)
+    first = _serve(ServingEngine(tm, device="cpu", **kw), prompts, [6] * 4,
+                   sampling=sampling)
+    again = _serve(ServingEngine(tm, device="cpu", **kw), prompts[::-1],
+                   [6] * 4, sampling=sampling[::-1])[::-1]
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)

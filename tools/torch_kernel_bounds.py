@@ -17,9 +17,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK = {"bf16": 989e12, "int8": 1979e12}
 
 # shapes of bench.py's callers
-B_DEC, H, D, T_DEC = 8, 16, 64, 128 + 256      # bench_generation(350m, 128, 256, 8)
-HIDDEN, VOCAB = 1024, 50304                    # gpt3-350m
-SLOTS, SLOT_LEN, PAGE = 8, 2048, 64            # bench_serving(350m): 8 slots x 2048
+HIDDEN = 1024                                  # gpt3-350m
 ROWS_TRAIN = 8 * 1024                          # bench_gpt(350m): batch 8 x seq 1024
 UNET_GN = 32 * 64 * 64 * 320                   # bench_unet(32): the largest GroupNorm input
 
@@ -34,31 +32,6 @@ def bound(name, body, caller, shape, n_bytes, ops, peak="bf16"):
 
 
 def rows():
-    keys = SLOTS * SLOT_LEN
-    yield bound(
-        "paged_ragged_attention (int8 KV)", "_kernel_q8 paged_attention.py:134",
-        "bench_serving int8 KV", "decode, 8 slots x 2048, h 16, d 64, page 64",
-        2 * keys * H * D              # K, V int8
-        + 2 * keys * H * 4            # per-(token, head) f32 scales
-        + 2 * SLOTS * H * D * 2       # q in, out (bf16)
-        + SLOTS * (SLOT_LEN // PAGE) * 4 + 2 * SLOTS * 4,   # table, lengths
-        4 * keys * H * D)
-    dec_kv = B_DEC * H * T_DEC * D      # keys <= pos at the last step (383)
-    dec_q = 2 * B_DEC * H * D * 2       # q in, out (bf16)
-    yield bound(
-        "fused_decode_attention", "_kernel_bf16 decode_attention.py:71",
-        "bench_generation", f"B 8, h 16, T {T_DEC}, d 64, bf16 cache",
-        2 * dec_kv * 2 + dec_q, 4 * dec_kv)
-    yield bound(
-        "fused_decode_attention (int8 cache)", "_kernel_q8 decode_attention.py:88",
-        "bench_generation quant", f"B 8, h 16, T {T_DEC}, d 64, int8 cache",
-        2 * dec_kv + 2 * B_DEC * H * T_DEC * 4 + dec_q, 4 * dec_kv)
-    yield bound(
-        "int8_stream_matmul", "_kernel decode_matmul.py:27",
-        "bench_generation quant (tied head, the largest call)",
-        f"x [8, {HIDDEN}] bf16 @ w_q [{HIDDEN}, {VOCAB}] int8",
-        B_DEC * HIDDEN * 2 + HIDDEN * VOCAB + VOCAB * 4 + B_DEC * VOCAB * 2,
-        2 * B_DEC * HIDDEN * VOCAB)
     act = ROWS_TRAIN * HIDDEN * 2       # one bf16 [8, 1024, 1024] activation
     yield bound(
         "fused_dropout_add_layernorm", "_dal_fwd_kernel fused.py:95",
