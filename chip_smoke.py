@@ -64,6 +64,29 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    S 512) built twice from one set of weights, flash kernels against
    plain dense attention: step-1 gradients within ``max|err| / max|ref|``
    1e-3 per parameter, three ``AdamW(1e-4)`` losses within ``rtol`` 1e-3.
+13. gn_kernel -- the fused GroupNorm forward and backward kernels against
+   their plain versions on the same inputs (run after ``decode_kernel``):
+   every (rows, C, mode) of the SD-UNet training step at batch 32 in
+   bfloat16 (14 shapes; modes act none, act silu, scale+shift+silu), a
+   few float32 cases, an odd row count and group counts other than 32.
+   Forward within ``atol`` 1e-4 (float32) / 2e-2 plus one bfloat16
+   rounding (``rtol`` 2**-8; bfloat16); statistics within 1e-4; gradients
+   within ``max|err| / max|ref|`` 1e-4 / 2e-2.  The step's cases timed
+   beside the bound, the plain version and
+   ``torch.nn.functional.group_norm``, and summed over the step's 56 calls.
+14. unet_train -- ``bench.py:bench_unet``'s SD-UNet (base 320, mults
+   1/2/4/4, attention at levels 2 and 3, 8 heads, 32 groups, bf16
+   parameters, batch 32 of 64x64x4 latents, t in [0, 1000)) through
+   ``build_train_step`` with ``AdamW(1e-4)``: 2 warm-up and 10 timed
+   steps, every loss finite, the last below the first, each GroupNorm
+   kernel launched 56 times a step; images/s, MFU from
+   ``FlopCounterMode``'s forward count x 3, then one step under
+   ``torch.profiler``.
+15. unet_check -- a shallow float32 UNet of SD width (base 320, mults
+   1/2, attention at level 1) on the card and as a copy on the CPU (the
+   plain versions), TF32 off: forward within ``max|err| / max|ref|``
+   1e-4, step-1 gradients within 1e-3 per parameter, three
+   ``AdamW(1e-4)`` losses within ``rtol`` 1e-3.
 
 Then the card's name and power limit (as ``nvidia-smi`` prints them), the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -98,6 +121,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 1e-4
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+# bench.py:bench_unet: the SD-UNet config, batch 32 of 64x64 latents
+UNET_CFG = dict(in_channels=4, out_channels=4, base_channels=320,
+                channel_mults=(1, 2, 4, 4), attn_levels=(2, 3), num_heads=8,
+                groups=32, blocks_per_level=2, upsample="interp")
+UNET_BATCH, UNET_IMG, UNET_LR = 32, 64, 1e-4
+GN_KERNELS = ("fused_group_norm", "fused_group_norm_bwd")
 
 
 def emit(phase: str, **fields) -> None:
@@ -635,6 +664,202 @@ def phase_decode_kernel() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 13. the GroupNorm kernels against their plain versions
+# ---------------------------------------------------------------------------
+# mode -> (act, scale+shift); "mod" is a ResBlock's norm2
+GN_MODES = {"none": ("none", False), "silu": ("silu", False),
+            "mod": ("silu", True)}
+GN_EPS = 1e-5
+
+
+def unet_gn_calls(cfg=UNET_CFG, img=UNET_IMG):
+    """(rows, C, mode) of each fused GroupNorm call of one UNet forward,
+    in order, walking ``models/unet.py``'s structure: a ResBlock's norm1
+    ("silu") and norm2 ("mod"), an AttnBlock's norm ("none"), the output
+    norm ("silu")."""
+    ch, mults = cfg["base_channels"], cfg["channel_mults"]
+    attn, per = cfg["attn_levels"], cfg["blocks_per_level"]
+    calls, chans, cin = [], [ch], ch
+    last = len(mults) - 1
+
+    def block(rows, c_in, c_out, lvl):
+        calls.extend([(rows, c_in, "silu"), (rows, c_out, "mod")])
+        if lvl in attn:
+            calls.append((rows, c_out, "none"))
+
+    for lvl, mult in enumerate(mults):
+        rows = (img >> lvl) ** 2
+        for _ in range(per):
+            block(rows, cin, ch * mult, lvl)
+            cin = ch * mult
+            chans.append(cin)
+        if lvl != last:
+            chans.append(cin)
+    rows = (img >> last) ** 2
+    calls.extend([(rows, cin, "silu"), (rows, cin, "mod"),
+                  (rows, cin, "none"), (rows, cin, "silu"),
+                  (rows, cin, "mod")])
+    for lvl, mult in reversed(list(enumerate(mults))):
+        rows = (img >> lvl) ** 2
+        for _ in range(per + 1):
+            block(rows, cin + chans.pop(), ch * mult, lvl)
+            cin = ch * mult
+    calls.append((img * img, cin, "silu"))
+    return calls
+
+
+def _gn_inputs(n, rows, c, mod, dtype):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    x = (1.5 * r(n, rows, c) + 0.5).to(dtype)
+    w, b = (1.0 + 0.2 * r(c)).to(dtype), (0.2 * r(c)).to(dtype)
+    s = t = None
+    if mod:
+        s, t = (0.3 * r(n, c)).to(dtype), (0.3 * r(n, c)).to(dtype)
+    return x, w, b, s, t, r(n, rows, c).to(dtype)
+
+
+def _gn_bound(kind, n, rows, c, groups, dtype, mode) -> dict:
+    """The least time: bytes -- forward x read and y written, backward x
+    and dy read and dx written, each once, plus the parameters, the
+    statistics and the float32 gradients of the parameters -- over the HBM
+    rate, against the float32 operations a pass does per element (forward
+    6, +4 for SiLU; backward 12, +10 for SiLU, +5 for the modulation) over
+    the float32 CUDA-core peak (the arithmetic is float32 whatever x's
+    type); the larger of the two."""
+    act, mod = GN_MODES[mode]
+    es = torch.tensor([], dtype=dtype).element_size()
+    elems = n * rows * c
+    params = 2 * c * es + (2 * n * c * es if mod else 0) + 2 * n * groups * 4
+    if kind == "fwd":
+        n_bytes = 2 * elems * es + params
+        ops = elems * (6 + (4 if act == "silu" else 0))
+    else:
+        n_bytes = (3 * elems * es + params + 2 * c * 4
+                   + (2 * n * c * 4 if mod else 0))
+        ops = elems * (12 + (10 if act == "silu" else 0) + (5 if mod else 0))
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
+def _gn_case(name, n, rows, c, groups, mode, dtype, timed) -> dict:
+    """One case: the kernels against the plain versions on the same
+    inputs (the backward from the plain forward's statistics), and with
+    ``timed`` each timed beside its bound, the plain version and
+    ``torch.nn.functional.group_norm`` on the channels-last NCHW view."""
+    import torch.nn.functional as F
+    from paddle_ray_tpu_torch.ops.groupnorm import (
+        fused_group_norm_bwd, fused_group_norm_bwd_plain, fused_group_norm_fwd,
+        fused_group_norm_fwd_plain)
+    act, mod = GN_MODES[mode]
+    x, w, b, s, t, dy = _gn_inputs(n, rows, c, mod, dtype)
+    kw = dict(groups=groups, act=act)
+    y, mu, rs = fused_group_norm_fwd(x, w, b, s, t, epsilon=GN_EPS, **kw)
+    torch.cuda.synchronize()
+    y_ref, mu_ref, rs_ref = fused_group_norm_fwd_plain(
+        x, w, b, s, t, epsilon=GN_EPS, **kw)
+    bwd = (x, w, b, s, t, mu_ref, rs_ref, dy)
+    got = fused_group_norm_bwd(*bwd, **kw)
+    torch.cuda.synchronize()
+    want = fused_group_norm_bwd_plain(*bwd, **kw)
+    tol = TOL[dtype]
+    # bfloat16: atol plus one rounding of the output type (a value that the
+    # two float32 paths put on either side of a rounding boundary)
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    fwd_err = float((y.float() - y_ref.float()).abs().max())
+    stat_err = max(float((mu - mu_ref).abs().max()),
+                   float((rs - rs_ref).abs().max()))
+    bwd_abs = max(float((a.float() - e.float()).abs().max())
+                  for a, e in zip(got, want) if e is not None)
+    bwd_rel = {k: _rel_err(a, e) for k, a, e in zip(
+        ("dx", "dweight", "dbias", "dscale", "dshift"), got, want)
+        if e is not None}
+    finite = all(bool(torch.isfinite(a).all()) for a in (y, mu, rs, *got)
+                 if a is not None)
+    if not (finite and torch.allclose(y.float(), y_ref.float(), rtol=rtol,
+                                      atol=tol)
+            and stat_err <= 1e-4 and max(bwd_rel.values()) <= tol):
+        raise AssertionError(
+            f"group norm {name}: kernel vs plain: forward max_abs_err "
+            f"{fwd_err}, statistics {stat_err}, gradients rel_err {bwd_rel} "
+            f"(tolerance {tol})")
+    r = {"fwd": {"max_abs_err": fwd_err, "stat_err": stat_err,
+                 **_gn_bound("fwd", n, rows, c, groups, dtype, mode)},
+         "bwd": {"max_abs_err": bwd_abs, "rel_err": bwd_rel,
+                 **_gn_bound("bwd", n, rows, c, groups, dtype, mode)}}
+    if timed:
+        xv = x.view(n, rows, 1, c).permute(0, 3, 1, 2)
+        dyv = dy.view(n, rows, 1, c).permute(0, 3, 1, 2)
+        lib_fwd = time_ms(lambda: F.group_norm(xv, groups, w, b, GN_EPS))
+        leaves = [a.detach().requires_grad_() for a in (xv, w, b)]
+        lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+            F.group_norm(leaves[0], groups, leaves[1], leaves[2], GN_EPS),
+            leaves, dyv))
+        r["fwd"].update(
+            ms=time_ms(lambda: fused_group_norm_fwd(
+                x, w, b, s, t, epsilon=GN_EPS, **kw)),
+            plain_ms=time_ms(lambda: fused_group_norm_fwd_plain(
+                x, w, b, s, t, epsilon=GN_EPS, **kw), iters=5),
+            library_ms=lib_fwd)
+        r["bwd"].update(
+            ms=time_ms(lambda: fused_group_norm_bwd(*bwd, **kw)),
+            plain_ms=time_ms(lambda: fused_group_norm_bwd_plain(*bwd, **kw),
+                             iters=5),
+            library_ms=lib_fwd_bwd - lib_fwd)
+    emit("gn_kernel", case=name, shape=[n, rows, c], groups=groups,
+         mode=mode, dtype=str(dtype), tol=tol, rtol=rtol, timed=timed,
+         library="torch.nn.functional.group_norm on the channels-last NCHW "
+                 "view: GroupNorm alone, without the modulation or SiLU "
+                 "(bwd: its autograd backward)", **r)
+    return r
+
+
+def phase_gn_kernel() -> dict:
+    """The UNet step's (rows, C, mode) calls at batch 32 in bfloat16,
+    timed; the other modes at the step's shapes, checked; float32 cases;
+    an odd row count and group counts other than 32 (2 groups: 320
+    channels a group, more than a block's 256 threads)."""
+    calls = unet_gn_calls()
+    step_cases = sorted(set(calls), key=lambda k: (-k[0], k[1], k[2]))
+    shapes = sorted({(rows, c) for rows, c, _ in calls}, reverse=True)
+    groups = UNET_CFG["groups"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+    for rows, c, mode in step_cases:
+        results[(rows, c, mode)] = _gn_case(
+            f"unet_{rows}x{c}_{mode}_bf16", UNET_BATCH, rows, c, groups,
+            mode, bf16, timed=True)
+    for rows, c in shapes:
+        for mode in GN_MODES:
+            if (rows, c, mode) not in results:
+                _gn_case(f"unet_{rows}x{c}_{mode}_bf16", UNET_BATCH, rows, c,
+                         groups, mode, bf16, timed=False)
+    for name, n, rows, c, g, mode, dtype in (
+            ("f32_4096x320_mod", UNET_BATCH, 4096, 320, 32, "mod", f32),
+            ("f32_256x1280_none", UNET_BATCH, 256, 1280, 32, "none", f32),
+            ("f32_64x2560_silu", UNET_BATCH, 64, 2560, 32, "silu", f32),
+            ("odd_rows_63x640_g16_mod_bf16", UNET_BATCH, 63, 640, 16, "mod",
+             bf16),
+            ("g2_cpg320_1024x640_silu_f32", 8, 1024, 640, 2, "silu", f32),
+            ("g4_cpg10_4095x40_mod_bf16", 4, 4095, 40, 4, "mod", bf16)):
+        _gn_case(name, n, rows, c, g, mode, dtype, timed=dtype == f32)
+    # the step's 56 calls of each kernel, summed
+    step = {kind: {k: sum(results[call][kind][k] for call in calls)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for kind in ("fwd", "bwd")}
+    emit("gn_kernel_step", calls_per_step=len(calls),
+         distinct_shapes=len(shapes), distinct_cases=len(step_cases),
+         **step)
+    return {"cases": results, "step": step, "calls": len(calls)}
+
+
+# ---------------------------------------------------------------------------
 # 6. the serving path: gpt3-350m
 # ---------------------------------------------------------------------------
 def bench_serving_workload(span: int):
@@ -1140,6 +1365,183 @@ def phase_train_check() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 14. the UNet training path: bench.py's SD-UNet
+# ---------------------------------------------------------------------------
+def _gn_counters():
+    from paddle_ray_tpu_torch.ops.groupnorm import (fused_group_norm_bwd,
+                                                    fused_group_norm_fwd)
+    return dict(zip(GN_KERNELS, (fused_group_norm_fwd, fused_group_norm_bwd)))
+
+
+def phase_unet_train() -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    from paddle_ray_tpu_torch.models import (UNetConfig, build_unet,
+                                             unet_loss_fn)
+    from paddle_ray_tpu_torch.ops.groupnorm import fused_group_norm
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    model = build_unet(UNetConfig(**UNET_CFG), dtype=torch.bfloat16,
+                       device="cuda", generator=g)
+    b, img = UNET_BATCH, UNET_IMG
+    x = torch.randn(b, img, img, 4, generator=g, device="cuda").bfloat16()
+    t = torch.randint(0, 1000, (b,), generator=g, device="cuda")
+    eps = torch.randn(b, img, img, 4, generator=g, device="cuda").bfloat16()
+    batch = (x, t, eps)
+    # the forward's FLOPs (convolutions and matmuls, as counted by
+    # PyTorch), x 3 for a training step: bench.py's convention
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        model(x, t)
+    fwd_flops = fc.get_total_flops()
+    ts = build_train_step(model, AdamW(UNET_LR), unet_loss_fn)
+    counters = _gn_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    fused_group_norm.copies = 0
+    losses = [ts.step(batch) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [ts.step(batch) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    copies = fused_group_norm.copies
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"unet losses not finite and falling: {losses}")
+    per_step = len(unet_gn_calls())
+    for n, count in launches.items():
+        if count != per_step * steps:
+            raise AssertionError(f"{n} launched {count} times in {steps} "
+                                 f"steps, want {per_step} a step")
+    images_per_s = b * TIMED_STEPS / dt
+    step_ms = 1e3 * dt / TIMED_STEPS
+    out = {"images_per_s": images_per_s, "step_ms": step_ms,
+           "mfu": images_per_s * 3 * fwd_flops / b
+           / PEAK_OPS_PER_S[torch.bfloat16],
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "launches_per_step": per_step,
+           "group_norm_input_copies": copies}
+    emit("unet_train", config=UNET_CFG, dtype="bfloat16", batch=b, img=img,
+         optimizer=f"AdamW({UNET_LR})", steps=steps, timed_steps=TIMED_STEPS,
+         n_params=sum(p.numel() for p in model.parameters()),
+         fwd_flops_per_image=fwd_flops / b, losses=losses, **out)
+
+    # one more step under the profiler: where a step's device time goes
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ts.step(batch)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    device_ms = sum(t_ for _, t_, _ in rows) / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:12]
+
+    def share(*keys):
+        return sum(t_ for k, t_, _ in rows if any(q in k for q in keys)) / 1e3
+    # device ms by kind, by kernel name (in this order): cuDNN's convolution
+    # kernels are named fprop / dgrad / wgrad, cuBLAS's GEMMs gemm or nvjet
+    kinds = {"group_norm": ("gn_fwd_kernel", "gn_bwd"),
+             "convolution": ("fprop", "dgrad", "wgrad", "convolve", "cudnn"),
+             "matmul": ("gemm", "nvjet"), "softmax": ("softmax",)}
+    by_kind, seen = {}, set()
+    for kind, keys in kinds.items():
+        names = {k for k, _, _ in rows if k not in seen
+                 and any(q in k.lower() for q in keys)}
+        seen |= names
+        by_kind[kind] = sum(t_ for k, t_, _ in rows if k in names) / 1e3
+    by_kind["other"] = device_ms - sum(by_kind.values())
+    emit("unet_profile", steps=1, step_ms_unprofiled=step_ms,
+         device_ms=device_ms, device_idle_share=1.0 - device_ms / step_ms,
+         kernels_launched=sum(c for _, _, c in rows),
+         device_ms_by_kind=by_kind,
+         group_norm_ms={"fwd": share("gn_fwd_kernel"),
+                        "bwd": share("gn_bwd_kernel", "gn_bwd_reduce")},
+         top_kernels=[{"name": k[:90], "ms": t_ / 1e3, "calls": c}
+                      for k, t_, c in top],
+         annotated_spans=[{"name": k, "ms": t_ / 1e3}
+                          for k, t_ in annotation_spans(prof)])
+    del ts, model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 15. correctness of the UNet training path on the card
+# ---------------------------------------------------------------------------
+UNET_CHECK_CFG = dict(UNET_CFG, channel_mults=(1, 2), blocks_per_level=1,
+                      attn_levels=(1,))
+
+
+def phase_unet_check() -> None:
+    """A shallow float32 UNet of SD width on the card (kernels) and as a
+    copy on the CPU (plain versions), TF32 off for both convolutions and
+    matmuls."""
+    from paddle_ray_tpu_torch.models import (UNetConfig, build_unet,
+                                             unet_loss_fn)
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 3)
+    models = {"cuda": build_unet(UNetConfig(**UNET_CHECK_CFG),
+                                 dtype=torch.float32, device="cuda",
+                                 generator=g)}
+    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
+    r = np.random.RandomState(SEED + 3)
+    b, img = 2, 32
+    arrays = (r.randn(b, img, img, 4).astype(np.float32),
+              np.asarray([17, 901]),
+              r.randn(b, img, img, 4).astype(np.float32))
+    batches = {dev: tuple(torch.from_numpy(a).to(dev) for a in arrays)
+               for dev in models}
+    counters = _gn_counters()
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        ys = {dev: m(*batches[dev][:2]) for dev, m in models.items()}
+    fwd_err = _rel_err(ys["cuda"].cpu(), ys["cpu"])
+    if not fwd_err <= 1e-4:
+        raise AssertionError(f"unet_check: forward off by {fwd_err} "
+                             f"(max|err|/max|ref|)")
+    grads = {}
+    for dev, m in models.items():
+        unet_loss_fn(m, batches[dev]).backward()
+        grads[dev] = {n: p.grad.detach().cpu() for n, p in
+                      m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+    launches = {n: c.launches for n, c in counters.items()}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"unet_check: GroupNorm kernels not launched "
+                             f"on the card: {launches}")
+    grad_err = {n: _rel_err(grads["cuda"][n], want)
+                for n, want in grads["cpu"].items()}
+    worst = max(grad_err, key=grad_err.get)
+    if grad_err[worst] > 1e-3:
+        raise AssertionError(f"unet_check: grad of {worst} off by "
+                             f"{grad_err[worst]} (max|err|/max|ref|)")
+    losses = {}
+    for dev, m in models.items():
+        ts = build_train_step(m, AdamW(UNET_LR), unet_loss_fn)
+        losses[dev] = [float(ts.step(batches[dev])) for _ in range(3)]
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-3, atol=0):
+        raise AssertionError(f"unet_check: losses {losses}")
+    emit("unet_check", config=UNET_CHECK_CFG, dtype="float32", batch=b,
+         img=img, tf32=False, forward_rel_err=fwd_err,
+         max_grad_rel_err=grad_err[worst], worst_param=worst,
+         losses=losses, launches=launches, fwd_tol=1e-4, grad_tol=1e-3,
+         loss_rtol=1e-3)
+    del models, grads, ys
+    torch.cuda.empty_cache()
+
+
 def _entry(name, source, replaces, body, launches, case, shape,
            max_abs_err=None) -> dict:
     """One row of the ``kernels`` line: the main path's launches, the
@@ -1180,6 +1582,7 @@ def main() -> None:
     kernel = phase_kernel()
     flash = phase_flash_kernel()
     decode = phase_decode_kernel()
+    gn = phase_gn_kernel()
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
@@ -1194,6 +1597,8 @@ def main() -> None:
     phase_generate_check()
     train = phase_train()
     phase_train_check()
+    unet = phase_unet_train()
+    phase_unet_check()
     train_case = flash["train_bf16"]
     flash_entries = [_entry(
         name, "flash_attention.cu", f"flash_attention.py:{line}", body,
@@ -1247,6 +1652,21 @@ def main() -> None:
                "(1024->3072, 1024->1024, 1024->4096, 4096->1024, with bias) "
                "+ the 1024->50304 head, 97 launches summed"),
     ]
+    gn_case = gn["cases"][(UNET_IMG * UNET_IMG, 320, "mod")]
+    gn_shape = (f"bf16 [{UNET_BATCH}, {UNET_IMG}, {UNET_IMG}, 320], 32 "
+                f"groups, scale+shift+silu (the step's {gn['calls']} calls "
+                f"sum to {{:.4f}} ms against a {{:.4f}} ms bound); "
+                f"library_ms is torch.nn.functional.group_norm alone on the "
+                f"channels-last NCHW view")
+    entries += [
+        _entry(name, "groupnorm.cu", f"groupnorm.py:{line}", body,
+               unet["launches"][name], gn_case[kind],
+               gn_shape.format(gn["step"][kind]["ms"],
+                               gn["step"][kind]["bound_ms"])
+               + ("" if kind == "fwd" else ", its autograd backward"))
+        for name, kind, line, body in zip(
+            GN_KERNELS, ("fwd", "bwd"), (48, 109),
+            ("_fwd_kernel", "_bwd_kernel"))]
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Neural-network building blocks of the port."""
-from . import functional
-from .layers import LayerNorm
+from . import functional, init
+from .layers import Conv2D, Conv2DTranspose, GroupNorm, LayerNorm, Linear
 
-__all__ = ["functional", "LayerNorm"]
+__all__ = ["functional", "init", "Conv2D", "Conv2DTranspose", "GroupNorm",
+           "LayerNorm", "Linear"]

@@ -1,15 +1,22 @@
-"""Functional ops on the GPT path (counterparts of
+"""Functional ops on the GPT and UNet paths (counterparts of
 ``paddle_ray_tpu/nn/functional.py``).  Plain PyTorch; each matches the
-JAX function's arithmetic, including where it computes in float32."""
+JAX function's arithmetic, including where it computes in float32.
+
+Convolutions take and return channels-last tensors (``NHWC``) with the
+JAX package's weight layouts.  They run ``torch.nn.functional``'s
+convolution on the channels-last NCHW view of ``x`` with the weight in
+``torch.channels_last``, so cuDNN runs its NHWC kernels and the result,
+permuted back, is a contiguous NHWC tensor without a copy."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as _F
 
 __all__ = ["gelu", "relu", "silu", "linear", "embedding", "layer_norm",
+           "group_norm", "conv2d", "conv2d_transpose",
            "scaled_dot_product_attention"]
 
 
@@ -55,6 +62,78 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     if bias is not None:
         y = y + bias.float()
     return y.to(dt)
+
+
+def group_norm(x: torch.Tensor, num_groups: int,
+               weight: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """GroupNorm of channels-last ``x [N, ..., C]`` over all but the
+    leading dim within each channel group, in float32 and cast back to
+    ``x``'s dtype (the plain module forward; the UNet runs
+    :func:`..ops.groupnorm.fused_group_norm`)."""
+    *lead, c = x.shape
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    xf = x.float().reshape(*lead, num_groups, c // num_groups)
+    red = tuple(range(1, xf.dim() - 2)) + (xf.dim() - 1,)
+    mean = xf.mean(dim=red, keepdim=True)
+    var = (xf - mean).square().mean(dim=red, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + epsilon)).reshape(*lead, c)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+_IntPair = Union[int, Sequence[int]]
+
+
+def _pair(v: _IntPair) -> Tuple[int, int]:
+    if isinstance(v, int):
+        return (v, v)
+    v = tuple(v)
+    if len(v) != 2 or not all(isinstance(e, int) for e in v):
+        raise NotImplementedError(
+            f"{v!r}: only an int or two ints are ported (no string or "
+            f"(low, high) padding)")
+    return v
+
+
+def _conv_out(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """NCHW (channels-last memory) -> NHWC, the bias added in the output's
+    dtype."""
+    y = y.permute(0, 2, 3, 1)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: _IntPair = 1,
+           padding: _IntPair = 0, dilation: _IntPair = 1,
+           groups: int = 1) -> torch.Tensor:
+    """2-D convolution of NHWC ``x``, weight ``(O, I/groups, kh, kw)`` (the
+    JAX ``_convnd``): the weight cast to x's dtype, the bias added in the
+    output's dtype."""
+    w = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    y = _F.conv2d(x.permute(0, 3, 1, 2), w, None, _pair(stride),
+                  _pair(padding), _pair(dilation), groups)
+    return _conv_out(y, bias)
+
+
+def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     stride: _IntPair = 1, padding: _IntPair = 0,
+                     output_padding: _IntPair = 0, groups: int = 1,
+                     dilation: _IntPair = 1) -> torch.Tensor:
+    """2-D transposed convolution of NHWC ``x``, weight ``(I, O/groups,
+    kh, kw)`` (the JAX ``_conv_transpose_nd``): ``L_out = (L - 1) * stride
+    - 2 p + dilation * (k - 1) + 1 + output_padding``."""
+    w = weight.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    y = _F.conv_transpose2d(x.permute(0, 3, 1, 2), w, None, _pair(stride),
+                            _pair(padding), _pair(output_padding), groups,
+                            _pair(dilation))
+    return _conv_out(y, bias)
 
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,

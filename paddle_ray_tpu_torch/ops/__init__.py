@@ -3,11 +3,17 @@ PyTorch version beside it."""
 from .flash_attention import (flash_attention, flash_backward,
                               flash_backward_dkv, flash_backward_dq,
                               flash_forward)
+from .groupnorm import (fused_group_norm, fused_group_norm_bwd,
+                        fused_group_norm_bwd_plain, fused_group_norm_fwd,
+                        fused_group_norm_fwd_plain)
 from .paged_attention import (DEFAULT_PAGE_SIZE, paged_decode_attention,
                               paged_ragged_attention,
                               paged_ragged_attention_plain)
 
 __all__ = ["DEFAULT_PAGE_SIZE", "flash_attention", "flash_backward",
            "flash_backward_dkv", "flash_backward_dq", "flash_forward",
+           "fused_group_norm", "fused_group_norm_bwd",
+           "fused_group_norm_bwd_plain", "fused_group_norm_fwd",
+           "fused_group_norm_fwd_plain",
            "paged_decode_attention", "paged_ragged_attention",
            "paged_ragged_attention_plain"]

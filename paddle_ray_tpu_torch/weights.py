@@ -1,5 +1,6 @@
-"""Weight conversion between the JAX package's GPT state dict and the
-port's :class:`~.models.gpt.GPT`.
+"""Weight conversion between the JAX package's state dicts and the port's
+models: the GPT (:class:`~.models.gpt.GPT`) and the UNet
+(:class:`~.models.unet.UNet`, whose keys are the JAX ones as they are).
 
 The JAX ``Module.state_dict()`` (``paddle_ray_tpu/core/module.py``) is a
 flat ``{path: numpy array}`` dict.  Its parameter layout is the port's
@@ -27,8 +28,10 @@ import torch
 
 from .models.generation import _quantize_in_place
 from .models.gpt import GPT, GPTConfig
+from .models.unet import UNet, UNetConfig
 
-__all__ = ["gpt_from_jax_state_dict", "gpt_to_jax_state_dict"]
+__all__ = ["gpt_from_jax_state_dict", "gpt_to_jax_state_dict",
+           "unet_from_jax_state_dict", "unet_to_jax_state_dict"]
 
 _JAX_BLOCK = re.compile(r"^blocks\.items\.(\d+)\.")
 _TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.")
@@ -55,21 +58,28 @@ def gpt_from_jax_state_dict(cfg: GPTConfig, state: Dict[str, np.ndarray], *,
         model = GPT(cfg, device=device)
         if any(k.endswith(".weight_q") for k in given):
             _quantize_in_place(model)
-        targets = model.state_dict()
-        missing = sorted(set(targets) - set(given))
-        unexpected = sorted(set(given) - set(targets))
-        if missing or unexpected:
-            raise KeyError(f"state dict does not match the GPT: missing "
-                           f"{missing[:8]}, unexpected {unexpected[:8]}")
-        for name, t in targets.items():
-            # int8 exactly; floats via float32 (numpy has no bfloat16)
-            arr = np.array(given[name], dtype=(
-                np.int8 if t.dtype == torch.int8 else np.float32))
-            if arr.shape != tuple(t.shape):
-                raise ValueError(f"shape mismatch for {name}: have "
-                                 f"{tuple(t.shape)}, got {arr.shape}")
-            t.copy_(torch.from_numpy(arr))
+        _copy_state(model, given, "GPT")
     return model
+
+
+def _copy_state(model: torch.nn.Module, given: Dict[str, np.ndarray],
+                what: str) -> None:
+    """Copy ``given`` into ``model``'s state in place; a missing or
+    unexpected key, or a shape that differs, raises."""
+    targets = model.state_dict()
+    missing = sorted(set(targets) - set(given))
+    unexpected = sorted(set(given) - set(targets))
+    if missing or unexpected:
+        raise KeyError(f"state dict does not match the {what}: missing "
+                       f"{missing[:8]}, unexpected {unexpected[:8]}")
+    for name, t in targets.items():
+        # int8 exactly; floats via float32 (numpy has no bfloat16)
+        arr = np.array(given[name], dtype=(
+            np.int8 if t.dtype == torch.int8 else np.float32))
+        if arr.shape != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {name}: have "
+                             f"{tuple(t.shape)}, got {arr.shape}")
+        t.copy_(torch.from_numpy(arr))
 
 
 def gpt_to_jax_state_dict(model: GPT) -> Dict[str, np.ndarray]:
@@ -77,4 +87,24 @@ def gpt_to_jax_state_dict(model: GPT) -> Dict[str, np.ndarray]:
     int8 ones for an int8 decode model's values."""
     return {_to_jax_key(name): (t.cpu().numpy() if t.dtype == torch.int8
                                 else t.detach().float().cpu().numpy())
+            for name, t in model.state_dict().items()}
+
+
+def unet_from_jax_state_dict(cfg: UNetConfig, state: Dict[str, np.ndarray],
+                             *, device, dtype=None) -> UNet:
+    """A :class:`UNet` for ``cfg`` on ``device`` holding the JAX state
+    dict's weights, in ``dtype`` (default ``cfg.dtype``).  A missing or
+    unexpected key, or a shape that differs, raises."""
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    with torch.no_grad():
+        model = UNet(cfg, device=device)
+        _copy_state(model, state, "UNet")
+    return model
+
+
+def unet_to_jax_state_dict(model: UNet) -> Dict[str, np.ndarray]:
+    """The JAX state dict of ``model``: float32 numpy arrays under the
+    same keys."""
+    return {name: t.detach().float().cpu().numpy()
             for name, t in model.state_dict().items()}

@@ -92,7 +92,8 @@ def test_package_imports_without_jax():
     imported = set(proc.stdout.split())
     for mod in ("core.prng", "ops.decode_attention", "ops.decode_matmul",
                 "quantization.quant", "models.generation",
-                "serving.engine"):
+                "serving.engine", "ops.groupnorm", "models.unet",
+                "nn.init"):
         assert f"paddle_ray_tpu_torch.{mod}" in imported, mod
 
 

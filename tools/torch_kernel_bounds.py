@@ -19,7 +19,6 @@ PEAK = {"bf16": 989e12, "int8": 1979e12}
 # shapes of bench.py's callers
 HIDDEN = 1024                                  # gpt3-350m
 ROWS_TRAIN = 8 * 1024                          # bench_gpt(350m): batch 8 x seq 1024
-UNET_GN = 32 * 64 * 64 * 320                   # bench_unet(32): the largest GroupNorm input
 
 
 def bound(name, body, caller, shape, n_bytes, ops, peak="bf16"):
@@ -43,13 +42,6 @@ def rows():
         "no bench.py caller; gpt3-350m's training activation",
         "[8, 1024, 1024] bf16", 7 * act + ROWS_TRAIN * 8,   # x res h dy dh2 -> dx dres
         12 * ROWS_TRAIN * HIDDEN)
-    yield bound(
-        "fused_group_norm", "_fwd_kernel groupnorm.py:48", "bench_unet(32)",
-        "[32, 64, 64, 320] bf16", 2 * UNET_GN * 2, 10 * UNET_GN)
-    yield bound(
-        "fused_group_norm backward", "_bwd_kernel groupnorm.py:109",
-        "bench_unet(32)", "[32, 64, 64, 320] bf16", 3 * UNET_GN * 2,
-        14 * UNET_GN)
     m, k, n = ROWS_TRAIN, HIDDEN, 4 * HIDDEN
     yield bound(
         "int8_matmul", "_int8_mm_kernel fused.py:320",
