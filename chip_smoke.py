@@ -23,7 +23,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    head_dim 128.  Forward within ``atol`` 1e-4 (float32) / 2e-2
    (bfloat16); gradients within ``max|err| / max|ref|`` 1e-4 / 2e-2.
    Timed beside the bound, the plain version and
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``.  Then the modes BERT and the fused
+   encoder run, non-causal at B 8, S 512, H 16, D 64, bf16: segment ids
+   with padding, a ``[B, 1, 1, S]`` mask-bias read in place (its result
+   equal to the materialised bias's), a full ``[B, H, S, S]`` bias with
+   dbias from the dq kernel; each timed beside its bound and SDPA with the
+   same mask.
 5. decode_kernel -- the decode kernels against their plain versions:
    fused decode attention at B 8, h 16, d 64 over the 512-row cache of
    ``generate()`` (pos 0, 127, 255, 383; bfloat16, float32 and int8), and
@@ -87,6 +92,38 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    plain versions), TF32 off: forward within ``max|err| / max|ref|``
    1e-4, step-1 gradients within 1e-3 per parameter, three
    ``AdamW(1e-4)`` losses within ``rtol`` 1e-3.
+16. dal_kernel -- the fused dropout-add-LayerNorm forward and backward
+   kernels against their plain versions (run after ``gn_kernel``) at the
+   fused encoder's shape ``[8 x 512, 1024]``: bfloat16 and float32, p 0.1
+   and 0, training on and off, an odd row count, with and without the h
+   output's cotangent; the keep mask bit-identical to ``keep_mask_plain``
+   (h of x = 1, residual 0 is the scaled mask).  y and h within ``atol``
+   1e-4 (float32) / 2e-2 plus one bfloat16 rounding step (``rtol`` 2**-7),
+   statistics within 1e-4, gradients within ``max|err| / max|ref|`` 1e-4 /
+   2e-2.  The encoder's case timed beside the bound, the plain version and
+   ``torch.nn.functional.layer_norm`` on h alone (and its autograd
+   backward).
+17. bert_train -- ``bench.py:bench_bert("bert-large", 512, 8, 10, {},
+   zero_stage=0)``: BERT-large (bf16, flash), batch 8 of 512 random ids
+   with ``mlm_labels = ids`` and NSP labels 0, ``AdamW(1e-4)`` through
+   ``build_train_step``, 2 warm-up and 10 timed steps; every loss finite,
+   the last below the first, each flash kernel launched 24 times a step;
+   tokens/s, step ms, MFU by bench's ``6 N + 12 L H S`` over 989 TFLOP/s,
+   peak memory; then one step under ``torch.profiler``.
+18. bert_check -- BERT-large width in float32, 4 layers, batch 2 of 512
+   padded to lengths 512 and 333 (segment ids on the flash path), on the
+   card and as a copy on the CPU (the plain versions), TF32 off: MLM
+   logits within ``max|err| / max|ref|`` 1e-4, step-1 gradients within
+   1e-3 per parameter, three ``AdamW(1e-4)`` losses within ``rtol`` 1e-3.
+19. encoder_train -- 24 ``FusedTransformerEncoderLayer(1024, 16, 4096,
+   dropout_rate=0.1, activation="gelu", attn_dropout_rate=0.0,
+   act_dropout_rate=0.0)`` (post-LN), bf16, batch 8 of 512 with a
+   ``[8, 1, 1, 512]`` padding mask over lengths 288-512, an MSE loss
+   against a seeded target, ``AdamW(1e-4)``, the key ``fold_in(PRNGKey(0),
+   step)`` folded with the layer index: 2 warm-up and 10 timed steps,
+   losses finite and falling, 48 launches each of the dropout-add-LN
+   kernels and 24 of each flash kernel a step; tokens/s and one profiled
+   step.
 
 Then the card's name and power limit (as ``nvidia-smi`` prints them), the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -127,6 +164,15 @@ UNET_CFG = dict(in_channels=4, out_channels=4, base_channels=320,
                 groups=32, blocks_per_level=2, upsample="interp")
 UNET_BATCH, UNET_IMG, UNET_LR = 32, 64, 1e-4
 GN_KERNELS = ("fused_group_norm", "fused_group_norm_bwd")
+# bench.py:bench_bert("bert-large", 512, 8, 10, {}, zero_stage=0)
+BERT_MODEL, BERT_SEQ, BERT_BATCH, BERT_LR = "bert-large", 512, 8, 1e-4
+# the fused encoder: 24 FusedTransformerEncoderLayer of BERT-large width
+ENC_LAYERS, ENC_D, ENC_HEADS, ENC_FFN, ENC_RATE = 24, 1024, 16, 4096, 0.1
+ENC_BATCH, ENC_SEQ, ENC_LR = 8, 512, 1e-4
+ENC_LENGTHS = tuple(int(x) for x in np.linspace(288, 512, ENC_BATCH))
+DAL_KERNELS = ("fused_dropout_add_layernorm",
+               "fused_dropout_add_layernorm_bwd")
+DAL_EPS, DAL_SEED = 1e-5, 12345
 
 
 def emit(phase: str, **fields) -> None:
@@ -406,12 +452,13 @@ FLASH_CASES = (
 )
 
 
-def _flash_bound(kind, b, s, h, hkv, d, dtype, causal) -> dict:
+def _flash_bound(kind, b, s, h, hkv, d, dtype, causal, extra_bytes=0) -> dict:
     """The least time for one kernel's work at this shape: its products
     (forward 2, dq 3, dk/dv 4 ``[S, D] x [D, S]``-shaped ones, each 2 *
     pairs * D operations per head, pairs the visible (row, key) pairs)
     over the peak for the inputs' type, against its inputs and outputs
-    read and written once over the HBM rate; the larger of the two."""
+    read and written once over the HBM rate (``extra_bytes``: a bias or
+    segment ids read, dbias written); the larger of the two."""
     pairs = s * (s + 1) // 2 if causal else s * s
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     ops = 2 * products * pairs * d * b * h
@@ -420,6 +467,7 @@ def _flash_bound(kind, b, s, h, hkv, d, dtype, causal) -> dict:
     n_bytes = {"fwd": 2 * nq + 2 * nkv + row,             # q k v -> o lse
                "dq": 3 * nq + 2 * nkv + 2 * row,          # q k v do lse delta -> dq
                "dkv": 2 * nq + 4 * nkv + 2 * row}[kind]   # q k v do lse delta -> dk dv
+    n_bytes += extra_bytes
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -508,6 +556,125 @@ def phase_flash_kernel() -> dict:
              library="scaled_dot_product_attention (dq and dkv entries: "
                      "its backward, for the two kernels together)", **r)
         del q, k, v, do, qf, kf, vf, dof, qh, kh, vh, doh, leaves
+    results.update(_flash_mode_cases())
+    return results
+
+
+# B 8, S 512, H 16, D 64, bf16, non-causal: the shape of BERT-large's and the
+# fused encoder's attention, with the masking each runs
+FLASH_MODES = ("segments_bf16", "mask_bias_bf16", "bias_dbias_bf16")
+
+
+def _flash_mode_cases() -> dict:
+    """The flash kernels with segment ids (padding over the encoder's
+    lengths), a ``[B, 1, 1, S]`` mask-bias read in place (equal to the
+    materialised bias) and a full float32 bias with dbias, against the
+    plain versions; each timed beside its bound, the plain version and
+    SDPA with the same mask (a boolean mask, or the bias as a float mask
+    without its gradient)."""
+    import torch.nn.functional as F
+    from paddle_ray_tpu_torch.ops.flash_attention import (
+        _fold_heads, flash_backward_dkv, flash_backward_dkv_plain,
+        flash_backward_dq, flash_backward_dq_plain, flash_forward,
+        flash_forward_plain)
+    b, s, h, d, dtype = ENC_BATCH, ENC_SEQ, ENC_HEADS, 64, torch.bfloat16
+    tol = TOL[dtype]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    qf, kf, vf, dof = (_fold_heads(t) for t in (q, k, v, do))
+    valid = (torch.arange(s, device="cuda")[None, :]
+             < torch.tensor(ENC_LENGTHS, device="cuda")[:, None])
+    seg = valid.to(torch.int32).contiguous()
+    mask_bias = torch.where(valid, 0.0, -1e30)[:, None, None, :].float()
+    full_bias = torch.randn(b, h, s, s, generator=g, device="cuda")
+    modes = {
+        "segments_bf16": (dict(segment_ids=(seg, seg)),
+                          seg[:, None, :, None] == seg[:, None, None, :],
+                          2 * b * s * 4),
+        "mask_bias_bf16": (dict(bias=mask_bias.expand(b, h, s, s)),
+                           valid[:, None, None, :], b * s * 4),
+        "bias_dbias_bf16": (dict(bias=full_bias), full_bias.to(dtype),
+                            b * h * s * s * 4),
+    }
+    results = {}
+    for name, (extra, sdpa_mask, extra_bytes) in modes.items():
+        kw = dict(causal=False, scale=1.0 / d ** 0.5, **extra)
+        need = name == "bias_dbias_bf16"
+        o, lse = flash_forward(qf, kf, vf, **kw)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_forward_plain(qf, kf, vf, **kw)
+        delta = (o_ref.float() * dof.float()).sum(-1)
+        bwd = (qf, kf, vf, dof, lse_ref, delta)
+        dq = flash_backward_dq(*bwd, need_dbias=need, **kw)
+        dk, dv = flash_backward_dkv(*bwd, **kw)
+        torch.cuda.synchronize()
+        dq_ref = flash_backward_dq_plain(*bwd, need_dbias=need, **kw)
+        dk_ref, dv_ref = flash_backward_dkv_plain(*bwd, **kw)
+        rel = {}
+        if need:
+            (dq, dbias), (dq_ref, dbias_ref) = dq, dq_ref
+            rel["dbias"] = _rel_err(dbias, dbias_ref)
+        err = {"fwd": max(float((o.float() - o_ref.float()).abs().max()),
+                          float((lse - lse_ref).abs().max())),
+               "dq": float((dq.float() - dq_ref.float()).abs().max()),
+               "dkv": max(float((dk.float() - dk_ref.float()).abs().max()),
+                          float((dv.float() - dv_ref.float()).abs().max()))}
+        rel.update(dq=_rel_err(dq, dq_ref),
+                   dkv=max(_rel_err(dk, dk_ref), _rel_err(dv, dv_ref)))
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (o, lse, dq, dk, dv))
+        same_as_materialised = None
+        if name == "mask_bias_bf16":
+            o_mat, lse_mat = flash_forward(
+                qf, kf, vf, **dict(kw, bias=extra["bias"].contiguous()))
+            same_as_materialised = bool(torch.equal(o_mat, o)
+                                        and torch.equal(lse_mat, lse))
+        if not (finite and err["fwd"] <= tol and max(rel.values()) <= tol
+                and same_as_materialised is not False):
+            raise AssertionError(
+                f"flash {name}: kernel vs plain: forward max_abs_err "
+                f"{err['fwd']}, gradient rel_err {rel} (tolerance {tol}), "
+                f"equal to the materialised bias: {same_as_materialised}")
+        qh, kh, vh, doh = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, do))
+        sdpa = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
+            *a, attn_mask=sdpa_mask, scale=kw["scale"])
+        lib_fwd = time_ms(lambda: sdpa(qh, kh, vh))
+        leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+        lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa(*leaves), leaves, doh))
+        r = {
+            "fwd": {"ms": time_ms(lambda: flash_forward(qf, kf, vf, **kw)),
+                    "plain_ms": time_ms(lambda: flash_forward_plain(
+                        qf, kf, vf, **kw), iters=5),
+                    "library_ms": lib_fwd},
+            "dq": {"ms": time_ms(lambda: flash_backward_dq(
+                       *bwd, need_dbias=need, **kw)),
+                   "plain_ms": time_ms(lambda: flash_backward_dq_plain(
+                       *bwd, need_dbias=need, **kw), iters=5),
+                   "library_ms": lib_fwd_bwd - lib_fwd},
+            "dkv": {"ms": time_ms(lambda: flash_backward_dkv(*bwd, **kw)),
+                    "plain_ms": time_ms(lambda: flash_backward_dkv_plain(
+                        *bwd, **kw), iters=5),
+                    "library_ms": lib_fwd_bwd - lib_fwd},
+        }
+        for kind in r:
+            kind_bytes = extra_bytes + (b * h * s * s * 4
+                                        if need and kind == "dq" else 0)
+            r[kind].update(max_abs_err=err[kind], rel_err=rel.get(kind),
+                           **_flash_bound(kind, b, s, h, h, d, dtype, False,
+                                          kind_bytes))
+        results[name] = r
+        emit("flash_kernel", case=name, shape=[b, s, h, d], h_kv=h,
+             dtype=str(dtype), causal=False, tol=tol,
+             lengths=list(ENC_LENGTHS), dbias_rel_err=rel.get("dbias"),
+             equal_to_materialised_bias=same_as_materialised,
+             library="scaled_dot_product_attention with the same mask "
+                     "(dq and dkv entries: its backward, for the two "
+                     "kernels together, without dbias)", **r)
+        del o, lse, dq, dk, dv, o_ref, dq_ref, dk_ref, dv_ref, leaves
     return results
 
 
@@ -857,6 +1024,141 @@ def phase_gn_kernel() -> dict:
          distinct_shapes=len(shapes), distinct_cases=len(step_cases),
          **step)
     return {"cases": results, "step": step, "calls": len(calls)}
+
+
+# ---------------------------------------------------------------------------
+# 16. the fused dropout-add-LayerNorm kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _dal_bound(kind, rows, h, dtype, dh2) -> dict:
+    """The least time: bytes -- forward x and residual read, y and h
+    written; backward h, dy (and dh2 when given) read, dx and dres
+    written; each once, plus the parameters, the row statistics and the
+    float32 dweight / dbias -- over the HBM rate, against the float32
+    operations a pass does per element (forward 10, backward 16; the hash
+    is integer work, not counted) over the float32 CUDA-core peak; the
+    larger of the two."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    elems = rows * h
+    if kind == "fwd":
+        n_bytes = 4 * elems * es + 2 * h * es + 2 * rows * 4
+        ops = 10 * elems
+    else:
+        n_bytes = ((4 + int(dh2)) * elems * es + h * es + 2 * rows * 4
+                   + 2 * h * 4)
+        ops = 16 * elems
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[torch.float32]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
+def _dal_case(name, rows, h, dtype, p, training, dh2, timed) -> dict:
+    """One case: the kernels against the plain versions on the same inputs
+    (the backward from the plain forward's h and statistics), the keep
+    mask bit for bit, and with ``timed`` each kernel timed beside its
+    bound, the plain version and ``torch.nn.functional.layer_norm`` on h
+    (the nearest library call: LayerNorm alone; bwd its autograd
+    backward)."""
+    import torch.nn.functional as F
+    from paddle_ray_tpu_torch.ops.fused import (
+        dal_backward, dal_backward_plain, dal_forward, dal_forward_plain,
+        keep_mask_plain)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + rows)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    x, res, dy = (r(rows, h).to(dtype) for _ in range(3))
+    d2 = r(rows, h).to(dtype) if dh2 else None
+    w, b = (1.0 + 0.2 * r(h)).to(dtype), (0.2 * r(h)).to(dtype)
+    kw = dict(p=p, training=training)
+    out = dal_forward(x, res, w, b, DAL_SEED, epsilon=DAL_EPS, **kw)
+    torch.cuda.synchronize()
+    ref = dal_forward_plain(x, res, w, b, DAL_SEED, epsilon=DAL_EPS, **kw)
+    bwd = (ref[1], ref[2], ref[3], w, dy, d2, DAL_SEED)
+    got = dal_backward(*bwd, **kw)
+    torch.cuda.synchronize()
+    want = dal_backward_plain(*bwd, **kw)
+    tol = TOL[dtype]
+    # bfloat16: atol plus one rounding step of the output type
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    fwd_err = max(float((a.float() - e.float()).abs().max())
+                  for a, e in zip(out[:2], ref[:2]))
+    stat_err = max(float((a - e).abs().max())
+                   for a, e in zip(out[2:], ref[2:]))
+    bwd_rel = {k: _rel_err(a, e) for k, a, e in zip(
+        ("dx", "dres", "dweight", "dbias"), got, want)}
+    bwd_abs = max(float((a.float() - e.float()).abs().max())
+                  for a, e in zip(got, want))
+    mask_same = None
+    if training and p > 0.0:
+        ones = torch.ones(rows, h, dtype=dtype, device="cuda")
+        hm = dal_forward(ones, torch.zeros_like(ones),
+                         torch.ones(h, dtype=dtype, device="cuda"),
+                         torch.zeros(h, dtype=dtype, device="cuda"),
+                         DAL_SEED, epsilon=DAL_EPS, **kw)[1]
+        keep = keep_mask_plain((rows, h), p, DAL_SEED, device="cuda")
+        mask_same = bool(torch.equal(hm != 0, keep != 0))
+    finite = all(bool(torch.isfinite(a).all()) for a in (*out, *got))
+    if not (finite and mask_same is not False
+            and all(torch.allclose(a.float(), e.float(), rtol=rtol, atol=tol)
+                    for a, e in zip(out[:2], ref[:2]))
+            and stat_err <= 1e-4 and max(bwd_rel.values()) <= tol):
+        raise AssertionError(
+            f"dal {name}: kernel vs plain: forward max_abs_err {fwd_err}, "
+            f"statistics {stat_err}, gradients rel_err {bwd_rel} (tolerance "
+            f"{tol}), mask bit-identical {mask_same}")
+    out_r = {"fwd": {"max_abs_err": fwd_err, "stat_err": stat_err,
+                     **_dal_bound("fwd", rows, h, dtype, dh2)},
+             "bwd": {"max_abs_err": bwd_abs, "rel_err": bwd_rel,
+                     **_dal_bound("bwd", rows, h, dtype, dh2)}}
+    if timed:
+        hh = ref[1]
+        lib_fwd = time_ms(lambda: F.layer_norm(hh, (h,), w, b, DAL_EPS))
+        leaves = [a.detach().requires_grad_() for a in (hh, w, b)]
+        lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+            F.layer_norm(leaves[0], (h,), leaves[1], leaves[2], DAL_EPS),
+            leaves, dy))
+        out_r["fwd"].update(
+            ms=time_ms(lambda: dal_forward(x, res, w, b, DAL_SEED,
+                                           epsilon=DAL_EPS, **kw)),
+            plain_ms=time_ms(lambda: dal_forward_plain(
+                x, res, w, b, DAL_SEED, epsilon=DAL_EPS, **kw), iters=5),
+            library_ms=lib_fwd)
+        out_r["bwd"].update(
+            ms=time_ms(lambda: dal_backward(*bwd, **kw)),
+            plain_ms=time_ms(lambda: dal_backward_plain(*bwd, **kw),
+                             iters=5),
+            library_ms=lib_fwd_bwd - lib_fwd)
+    emit("dal_kernel", case=name, shape=[rows, h], dtype=str(dtype), p=p,
+         training=training, dh2=dh2, tol=tol, rtol=rtol,
+         mask_bit_identical=mask_same, timed=timed,
+         library="torch.nn.functional.layer_norm on h: LayerNorm alone, "
+                 "without the dropout or the residual add (bwd: its "
+                 "autograd backward)", **out_r)
+    return out_r
+
+
+def phase_dal_kernel() -> dict:
+    """The fused encoder's shape ``[8 x 512, 1024]`` (bf16, p 0.1,
+    training, no cotangent of h: its main path, timed), the other modes,
+    float32 and an odd row count."""
+    rows, h = ENC_BATCH * ENC_SEQ, ENC_D
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+    for name, n, dtype, p, training, dh2, timed in (
+            ("encoder_bf16_p0.1", rows, bf16, ENC_RATE, True, False, True),
+            ("bf16_p0.1_dh2", rows, bf16, ENC_RATE, True, True, False),
+            ("bf16_p0_dh2", rows, bf16, 0.0, True, True, False),
+            ("bf16_eval", rows, bf16, ENC_RATE, False, False, False),
+            ("f32_p0.1_dh2", rows, f32, ENC_RATE, True, True, True),
+            ("f32_eval", rows, f32, ENC_RATE, False, True, False),
+            ("odd_rows_bf16_p0.1", rows - 3, bf16, ENC_RATE, True, True,
+             False),
+            ("odd_rows_f32_p0.1", 7, f32, ENC_RATE, True, True, False)):
+        results[name] = _dal_case(name, n, h, dtype, p, training, dh2, timed)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1542,6 +1844,256 @@ def phase_unet_check() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 17. the BERT pretraining path: bench.py's BERT-large
+# ---------------------------------------------------------------------------
+def _profile_step(step, label, step_ms, groups) -> None:
+    """One more ``step()`` under ``torch.profiler``: device ms, idle
+    share, launches, the top kernels and the device ms of each named
+    group of kernel-name keys."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    device_ms = sum(t for _, t, _ in rows) / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:10]
+    emit(label, steps=1, step_ms_unprofiled=step_ms, device_ms=device_ms,
+         device_idle_share=1.0 - device_ms / step_ms,
+         kernels_launched=sum(c for _, _, c in rows),
+         group_ms={name: sum(t for k, t, _ in rows
+                             if any(q in k for q in keys)) / 1e3
+                   for name, keys in groups.items()},
+         top_kernels=[{"name": k[:90], "ms": t / 1e3, "calls": c}
+                      for k, t, c in top],
+         annotated_spans=[{"name": k, "ms": t / 1e3}
+                          for k, t in annotation_spans(prof)])
+
+
+def _timed_train(ts, step, counters, per_step, what) -> dict:
+    """2 warm-up and 10 timed ``step()`` calls with the kernel counters
+    set to 0 first: losses finite and falling, each counter at
+    ``per_step`` a step.  Returns the losses, seconds and launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses = [step(i) for i in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(WARMUP_STEPS + i) for i in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what} losses not finite and falling: "
+                             f"{losses}")
+    for n, count in launches.items():
+        if count != per_step[n] * steps:
+            raise AssertionError(f"{what}: {n} launched {count} times in "
+                                 f"{steps} steps, want {per_step[n]} a step")
+    return {"losses": losses, "seconds": dt, "launches": launches,
+            "steps": steps,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_bert_train() -> dict:
+    from paddle_ray_tpu_torch.models import (BertForPretraining, bert_config,
+                                             bert_pretrain_loss_fn)
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    cfg = bert_config(BERT_MODEL, max_seq_len=BERT_SEQ, dtype="bfloat16",
+                      attn_impl="flash")
+    model = BertForPretraining(cfg, device="cuda", generator=g)
+    ts = build_train_step(model, AdamW(BERT_LR), bert_pretrain_loss_fn)
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ))).to("cuda")
+    batch = {"ids": ids, "mlm_labels": ids,
+             "nsp_labels": torch.zeros(BERT_BATCH, dtype=torch.long,
+                                       device="cuda")}
+    counters = _flash_counters()
+    run = _timed_train(ts, lambda i: ts.step(batch), counters,
+                       {n: cfg.num_layers for n in counters}, "bert_train")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = BERT_BATCH * BERT_SEQ * TIMED_STEPS / run["seconds"]
+    # bench.py's count: 6 N + 12 L H S FLOP per token, against the bf16 peak
+    flops_per_token = (6 * n_params
+                       + 12 * cfg.num_layers * cfg.hidden_size * BERT_SEQ)
+    step_ms = 1e3 * run["seconds"] / TIMED_STEPS
+    out = {"tokens_per_s": tokens_per_s, "step_ms": step_ms,
+           "mfu": tokens_per_s * flops_per_token
+           / PEAK_OPS_PER_S[torch.bfloat16],
+           "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
+           "peak_memory_gb": run["peak_memory_gb"],
+           "launches": run["launches"]}
+    emit("bert_train", model=BERT_MODEL, dtype="bfloat16",
+         attn_impl="flash", batch=BERT_BATCH, seq=BERT_SEQ,
+         optimizer=f"AdamW({BERT_LR})", steps=run["steps"],
+         timed_steps=TIMED_STEPS, n_params=n_params,
+         flops_per_token=flops_per_token, losses=run["losses"], **out)
+    _profile_step(lambda: ts.step(batch), "bert_profile", step_ms,
+                  {"flash": ("flash_",), "matmul": ("gemm", "nvjet")})
+    del ts, model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 18. correctness of the BERT path on the card
+# ---------------------------------------------------------------------------
+def phase_bert_check() -> None:
+    """BERT-large width in float32, 4 layers, padded (segment ids on the
+    flash path), on the card (kernels) and as a copy on the CPU (plain
+    versions), TF32 off."""
+    from paddle_ray_tpu_torch.models import (BertForPretraining, bert_config,
+                                             bert_pretrain_loss_fn)
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s = 2, BERT_SEQ
+    cfg = bert_config(BERT_MODEL, max_seq_len=s, num_layers=4,
+                      attn_impl="flash")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 4)
+    models = {"cuda": BertForPretraining(cfg, device="cuda", generator=g)}
+    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
+    r = np.random.RandomState(SEED + 4)
+    lengths = (512, 333)
+    arrays = {"ids": r.randint(0, cfg.vocab_size, (b, s)),
+              "token_type_ids": (np.arange(s)[None, :] >= 200).repeat(b, 0),
+              "attention_mask": (np.arange(s)[None, :]
+                                 < np.asarray(lengths)[:, None]),
+              "mlm_labels": np.where(r.rand(b, s) < 0.15,
+                                     r.randint(0, cfg.vocab_size, (b, s)),
+                                     -100),
+              "nsp_labels": np.asarray([0, 1])}
+    batches = {dev: {k: torch.from_numpy(np.asarray(a)).long().to(dev)
+                     for k, a in arrays.items()} for dev in models}
+    counters = _flash_counters()
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        logits = {dev: m(batches[dev]["ids"], batches[dev]["token_type_ids"],
+                         batches[dev]["attention_mask"])[0]
+                  for dev, m in models.items()}
+    fwd_err = _rel_err(logits["cuda"].cpu(), logits["cpu"])
+    if not fwd_err <= 1e-4:
+        raise AssertionError(f"bert_check: MLM logits off by {fwd_err} "
+                             f"(max|err|/max|ref|)")
+    del logits
+    grads = {}
+    for dev, m in models.items():
+        bert_pretrain_loss_fn(m, batches[dev]).backward()
+        grads[dev] = {n: p.grad.detach().cpu()
+                      for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+    launches = {n: c.launches for n, c in counters.items()}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"bert_check: flash kernels not launched on "
+                             f"the card: {launches}")
+    grad_err = {n: _rel_err(grads["cuda"][n], want)
+                for n, want in grads["cpu"].items()}
+    worst = max(grad_err, key=grad_err.get)
+    if grad_err[worst] > 1e-3:
+        raise AssertionError(f"bert_check: grad of {worst} off by "
+                             f"{grad_err[worst]} (max|err|/max|ref|)")
+    losses = {}
+    for dev, m in models.items():
+        ts = build_train_step(m, AdamW(BERT_LR), bert_pretrain_loss_fn)
+        losses[dev] = [float(ts.step(batches[dev])) for _ in range(3)]
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-3, atol=0):
+        raise AssertionError(f"bert_check: losses {losses}")
+    emit("bert_check", dtype="float32", layers=4, batch=b, seq=s,
+         lengths=list(lengths), tf32=False, forward_rel_err=fwd_err,
+         max_grad_rel_err=grad_err[worst], worst_param=worst,
+         losses=losses, launches=launches, fwd_tol=1e-4, grad_tol=1e-3,
+         loss_rtol=1e-3)
+    del models, grads
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 19. the fused encoder: 24 FusedTransformerEncoderLayer of BERT-large width
+# ---------------------------------------------------------------------------
+class _EncoderStack(torch.nn.Module):
+    """``FusedTransformerEncoderLayer``s in a row, each under its own key
+    (``fold_in(rng, layer)``)."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(layers)
+
+    def forward(self, src, src_mask, rng):
+        from paddle_ray_tpu_torch.core import prng
+        for i, layer in enumerate(self.layers):
+            src = layer(src, src_mask, rng=prng.fold_in(rng, i))
+        return src
+
+
+def _dal_counters():
+    from paddle_ray_tpu_torch.ops.fused import dal_backward, dal_forward
+    return dict(zip(DAL_KERNELS, (dal_forward, dal_backward)))
+
+
+def phase_encoder_train() -> dict:
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.incubate import FusedTransformerEncoderLayer
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    model = _EncoderStack([FusedTransformerEncoderLayer(
+        ENC_D, ENC_HEADS, ENC_FFN, dropout_rate=ENC_RATE, activation="gelu",
+        attn_dropout_rate=0.0, act_dropout_rate=0.0, normalize_before=False,
+        dtype="bfloat16", device="cuda", generator=g)
+        for _ in range(ENC_LAYERS)])
+    b, s = ENC_BATCH, ENC_SEQ
+    src = torch.randn(b, s, ENC_D, generator=g, device="cuda").bfloat16()
+    target = torch.randn(b, s, ENC_D, generator=g, device="cuda").bfloat16()
+    valid = (torch.arange(s, device="cuda")[None, :]
+             < torch.tensor(ENC_LENGTHS, device="cuda")[:, None])
+    src_mask = valid[:, None, None, :]
+
+    def loss_fn(m, batch, rng):
+        x, mask, y = batch
+        return ((m(x, mask, rng).float() - y.float()) ** 2).mean()
+    ts = build_train_step(model, AdamW(ENC_LR), loss_fn)
+    batch = (src, src_mask, target)
+    root = prng.PRNGKey(0)
+    counters = {**_dal_counters(), **_flash_counters()}
+    per_step = {**{n: 2 * ENC_LAYERS for n in DAL_KERNELS},
+                **{n: ENC_LAYERS for n in FLASH_KERNELS}}
+    run = _timed_train(ts, lambda i: ts.step(batch, prng.fold_in(root, i)),
+                       counters, per_step, "encoder_train")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = b * s * TIMED_STEPS / run["seconds"]
+    flops_per_token = 6 * n_params + 12 * ENC_LAYERS * ENC_D * s
+    step_ms = 1e3 * run["seconds"] / TIMED_STEPS
+    out = {"tokens_per_s": tokens_per_s, "step_ms": step_ms,
+           "mfu": tokens_per_s * flops_per_token
+           / PEAK_OPS_PER_S[torch.bfloat16],
+           "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
+           "peak_memory_gb": run["peak_memory_gb"],
+           "launches": run["launches"]}
+    emit("encoder_train", layers=ENC_LAYERS, d_model=ENC_D, heads=ENC_HEADS,
+         ffn=ENC_FFN, dropout_rate=ENC_RATE, dtype="bfloat16", batch=b,
+         seq=s, lengths=list(ENC_LENGTHS), optimizer=f"AdamW({ENC_LR})",
+         steps=run["steps"], timed_steps=TIMED_STEPS, n_params=n_params,
+         flops_per_token=flops_per_token, losses=run["losses"], **out)
+    _profile_step(lambda: ts.step(batch, prng.fold_in(root, 99)),
+                  "encoder_profile", step_ms,
+                  {"dropout_add_layernorm": ("dal_fwd", "dal_bwd"),
+                   "flash": ("flash_",), "matmul": ("gemm", "nvjet")})
+    del ts, model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def _entry(name, source, replaces, body, launches, case, shape,
            max_abs_err=None) -> dict:
     """One row of the ``kernels`` line: the main path's launches, the
@@ -1583,6 +2135,7 @@ def main() -> None:
     flash = phase_flash_kernel()
     decode = phase_decode_kernel()
     gn = phase_gn_kernel()
+    dal = phase_dal_kernel()
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
@@ -1599,11 +2152,22 @@ def main() -> None:
     phase_train_check()
     unet = phase_unet_train()
     phase_unet_check()
+    bert = phase_bert_train()
+    phase_bert_check()
+    enc = phase_encoder_train()
     train_case = flash["train_bf16"]
+    runs = {"gpt": train, "bert": bert, "encoder": enc}
     flash_entries = [_entry(
         name, "flash_attention.cu", f"flash_attention.py:{line}", body,
-        train["launches"][name], train_case[kind],
-        "bf16 causal, B 8, S 1024, H 16, D 64"
+        sum(r["launches"][name] for r in runs.values()), train_case[kind],
+        "bf16 causal, B 8, S 1024, H 16, D 64 (launches: gpt3-350m, "
+        "BERT-large and the fused encoder training runs, "
+        + ", ".join(f"{r['launches'][name]}" for r in runs.values())
+        + "); non-causal B 8, S 512 with segment ids {:.4f} ms, a [B,1,1,S] "
+        "mask-bias {:.4f} ms, a full bias{} {:.4f} ms".format(
+            *(flash[m][kind]["ms"] for m in FLASH_MODES[:2]),
+            " with dbias" if kind == "dq" else "",
+            flash[FLASH_MODES[2]][kind]["ms"])
         + ("" if kind == "fwd" else "; library_ms is SDPA's backward, for "
            "dq and dk/dv together"))
         for name, kind, line, body in zip(
@@ -1667,6 +2231,17 @@ def main() -> None:
         for name, kind, line, body in zip(
             GN_KERNELS, ("fwd", "bwd"), (48, 109),
             ("_fwd_kernel", "_bwd_kernel"))]
+    dal_case = dal["encoder_bf16_p0.1"]
+    entries += [
+        _entry(name, "fused.cu", f"fused.py:{line}", body,
+               enc["launches"][name], dal_case[kind],
+               f"bf16 [{ENC_BATCH} x {ENC_SEQ}, {ENC_D}], p {ENC_RATE}, "
+               f"training, h unused (the fused encoder's post-LN call); "
+               f"library_ms is torch.nn.functional.layer_norm on h alone"
+               + ("" if kind == "fwd" else ", its autograd backward"))
+        for name, kind, line, body in zip(
+            DAL_KERNELS, ("fwd", "bwd"), (95, 116),
+            ("_dal_fwd_kernel", "_dal_bwd_kernel"))]
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,12 @@ hand-written CUDA kernel (``ops/csrc/paged_attention.cu``) for ragged paged
 attention.  The second trains them on one device
 (:func:`parallel.build_train_step` with :class:`optimizer.AdamW` and
 :func:`models.gpt_loss_fn`), with hand-written CUDA kernels for flash
-attention forward and backward (``ops/csrc/flash_attention.cu``).  Entry points run on the CUDA device unless the caller passes
+attention forward and backward (``ops/csrc/flash_attention.cu``).  Later
+slices decode with ``generate()`` and int8, train the SD-UNet with fused
+GroupNorm kernels, and pretrain BERT and train the ``incubate.nn`` fused
+encoder layers with fused dropout-add-LayerNorm kernels
+(``ops/csrc/fused.cu``) and the flash kernels' bias, mask and segment
+ids.  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``, where every kernel's plain PyTorch version runs instead.
 """
 from .device import default_device, resolve_device

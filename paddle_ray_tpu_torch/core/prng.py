@@ -21,7 +21,10 @@ by :func:`categorical` can differ from JAX's where two perturbed logits
 lie within an ulp of each other.
 
 The hash is about 170 elementwise tensor operations; on a CUDA tensor
-each is one launch.
+each is one launch.  One key on the host hashing a few counters (a key
+split, a fold-in, a ``randint`` seed) runs the same arithmetic on Python
+integers instead: there a tensor operation a word would cost more than
+the whole hash.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "as_key", "threefry2x32", "fold_in", "split",
-           "random_bits", "uniform", "gumbel", "categorical"]
+           "random_bits", "uniform", "bernoulli", "randint", "gumbel",
+           "categorical"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -80,6 +84,14 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
+# at most this many counters of one host key hash on Python integers
+_SCALAR_COUNTERS = 16
+
+
+def _host_scalar(key: torch.Tensor) -> bool:
+    return key.device.type == "cpu" and key.dim() == 1
+
+
 def _hash_counters(key: torch.Tensor, shape: Sequence[int]):
     """Hash the flat counters ``0..prod(shape)-1`` (a 64-bit iota split
     into high and low words) under each key: words of shape
@@ -87,6 +99,12 @@ def _hash_counters(key: torch.Tensor, shape: Sequence[int]):
     key = as_key(key)
     shape = tuple(int(s) for s in shape)
     n = int(np.prod(shape, dtype=np.int64))
+    if _host_scalar(key) and n <= _SCALAR_COUNTERS:
+        k1, k2 = key.tolist()
+        words = [threefry2x32(k1, k2, i >> 32, i & _MASK) for i in range(n)]
+        return tuple(torch.tensor([w[j] for w in words],
+                                  dtype=torch.int64).reshape(shape)
+                     for j in (0, 1))
     idx = torch.arange(n, dtype=torch.int64, device=key.device)
     hi, lo = (idx >> 32).reshape(shape), (idx & _MASK).reshape(shape)
     lead = key.shape[:-1]
@@ -100,6 +118,9 @@ def fold_in(key, data) -> torch.Tensor:
     ``(0, data mod 2**32)``.  ``data`` is an int or an integer tensor that
     broadcasts against ``key.shape[:-1]``."""
     key = as_key(key)
+    if _host_scalar(key) and isinstance(data, int):
+        return torch.tensor(threefry2x32(*key.tolist(), 0, data & _MASK),
+                            dtype=torch.int64)
     data = torch.as_tensor(data, device=key.device).to(torch.int64) & _MASK
     y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
                           data)
@@ -130,6 +151,46 @@ def uniform(key, shape: Sequence[int], minval: float = 0.0,
     lo, hi = np.float32(minval), np.float32(maxval)
     f = f * float(np.float32(hi - lo)) + float(lo)
     return torch.clamp(f, min=float(lo))
+
+
+def bernoulli(key, p: float, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float ``p`` (``"low"``
+    mode): ``uniform(key, shape) < p``, ``p`` rounded to float32."""
+    return uniform(key, shape) < float(np.float32(p))
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b mod 2**32`` for uint32 values held in int64 (``b`` a
+    tensor or an int), without the int64 overflow of the full product:
+    ``a`` in 16-bit halves."""
+    lo, hi = a & 0xFFFF, a >> 16
+    return (lo * b + (((hi * b) & 0xFFFF) << 16)) & _MASK
+
+
+def randint(key, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` for int
+    bounds inside int32 (JAX refuses others in 32-bit mode): two words of
+    bits (``split(key)``), combined modulo the span in uint32 arithmetic
+    (``jax/_src/random.py:_randint``).  An int32 tensor of shape
+    ``key.shape[:-1] + shape``."""
+    minval, maxval = int(minval), int(maxval)
+    for v in (minval, maxval):
+        if not _I32_MIN <= v <= _I32_MAX:
+            raise OverflowError(f"randint bound {v} is outside int32")
+    span = (maxval - minval) if maxval > minval else 1
+    keys = split(key, 2)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    # 2**32 mod span, as JAX computes it: (2**16 mod span)**2 wrapped to
+    # 32 bits, mod span
+    multiplier = (((2 ** 16 % span) ** 2) & _MASK) % span
+    offset = (mul32(higher % span, multiplier) + lower % span) & _MASK
+    out = minval + offset % span
+    return out.to(torch.int32)
 
 
 def gumbel(key, shape: Sequence[int]) -> torch.Tensor:

@@ -1,6 +1,11 @@
-"""Functional ops on the GPT and UNet paths (counterparts of
+"""Functional ops on the GPT, UNet and BERT paths (counterparts of
 ``paddle_ray_tpu/nn/functional.py``).  Plain PyTorch; each matches the
 JAX function's arithmetic, including where it computes in float32.
+
+Dropout draws its mask from an explicit key of :mod:`..core.prng`, bit
+for bit the mask ``jax.random.bernoulli`` gives the JAX function under the
+same key.  The JAX package's fallback for a missing key, the global key
+tracker of ``paddle_ray_tpu/core/rng.py``, is not ported.
 
 Convolutions take and return channels-last tensors (``NHWC``) with the
 JAX package's weight layouts.  They run ``torch.nn.functional``'s
@@ -15,9 +20,9 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as _F
 
-__all__ = ["gelu", "relu", "silu", "linear", "embedding", "layer_norm",
-           "group_norm", "conv2d", "conv2d_transpose",
-           "scaled_dot_product_attention"]
+__all__ = ["gelu", "relu", "silu", "tanh", "dropout", "linear", "embedding",
+           "layer_norm", "group_norm", "conv2d", "conv2d_transpose",
+           "scaled_dot_product_attention", "cross_entropy"]
 
 
 def gelu(x: torch.Tensor, approximate: bool = True) -> torch.Tensor:
@@ -32,6 +37,38 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return _F.silu(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+def no_key_error(what: str) -> NotImplementedError:
+    """The error for a dropout asked to draw without a key: the JAX
+    package would take one from its global tracker, which is not
+    ported."""
+    return NotImplementedError(
+        f"{what} in training needs an explicit rng key (core.prng): the "
+        f"global key tracker of paddle_ray_tpu/core/rng.py is not ported")
+
+
+def dropout(x: torch.Tensor, p: float, *, training: bool = True,
+            rng=None, mode: str = "upscale_in_train") -> torch.Tensor:
+    """``jax``-exact dropout: keep where ``prng.bernoulli(rng, 1 - p,
+    x.shape)``; ``"upscale_in_train"`` divides the kept values by ``1 -
+    p`` rounded to x's dtype, as the JAX function's weakly typed divisor
+    is."""
+    if not training or p == 0.0:
+        return x
+    if rng is None:
+        raise no_key_error("dropout")
+    from ..core import prng
+    keep = 1.0 - p
+    mask = prng.bernoulli(prng.as_key(rng, x.device), keep, x.shape)
+    if mode == "upscale_in_train":
+        x = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -137,12 +174,17 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor,
 
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
-                                 v: torch.Tensor, *, causal: bool = False,
+                                 v: torch.Tensor,
+                                 mask: Optional[torch.Tensor] = None, *,
+                                 causal: bool = False,
                                  scale: Optional[float] = None
                                  ) -> torch.Tensor:
     """Plain dense attention in the ``[B, S, H, D]`` layout: matmul, mask,
     float32 softmax, matmul -- the arithmetic of the JAX reference, not
-    PyTorch's fused operator."""
+    PyTorch's fused operator.  ``mask`` is boolean, broadcastable to
+    ``[B, H, Sq, Sk]``; False logits become ``-inf`` (a row with no True
+    entry gives NaN, as in JAX).  The JAX function's probability dropout
+    is not ported."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, D]
@@ -152,5 +194,27 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
         keep = torch.ones(sq, sk, dtype=torch.bool,
                           device=q.device).tril(sk - sq)
         logits = logits.masked_fill(~keep, float("-inf"))
+    if mask is not None:
+        logits = logits.masked_fill(~mask.to(torch.bool), float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs, vh).transpose(1, 2)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  ignore_index: int = -100,
+                  reduction: str = "mean") -> torch.Tensor:
+    """Softmax cross-entropy over the last dim in float32 (the JAX
+    ``cross_entropy`` with hard labels): labels equal to ``ignore_index``
+    lose 0; ``"mean"`` divides by the count of the others, at least 1.
+    Soft labels and label smoothing are not ported."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    labels = labels.long()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    picked = torch.gather(logp, -1, safe[..., None])[..., 0]
+    loss = torch.where(valid, -picked, torch.zeros_like(picked))
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    return loss.sum() / torch.clamp(valid.float().sum(), min=1.0)

@@ -1,4 +1,4 @@
-"""Layers on the GPT and UNet paths (counterparts of
+"""Layers on the GPT, UNet and BERT paths (counterparts of
 ``paddle_ray_tpu/nn/layers.py``).  Parameters keep the JAX package's
 names, shapes and initializers; each layer draws them from the passed
 :class:`torch.Generator`."""
@@ -12,7 +12,8 @@ from torch import nn
 from . import functional as F
 from . import init as I
 
-__all__ = ["LayerNorm", "Linear", "GroupNorm", "Conv2D", "Conv2DTranspose"]
+__all__ = ["LayerNorm", "Linear", "Dropout", "GroupNorm", "Conv2D",
+           "Conv2DTranspose"]
 
 
 class LayerNorm(nn.Module):
@@ -53,6 +54,18 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+
+class Dropout(nn.Module):
+    """:func:`functional.dropout` with rate ``p`` while the module is in
+    training mode, under the key passed to ``forward``."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        return F.dropout(x, self.p, training=self.training, rng=rng)
 
 
 class GroupNorm(nn.Module):

@@ -7,13 +7,30 @@
 // Same arithmetic: q arrives pre-scaled by scale * log2(e) in its own dtype, every
 // kernel works in the exp2 domain, masked logits are -1e30 before the max, the causal
 // mask is top-left aligned (row >= col), l is clamped to 1e-30, lse = (m + log2 l) ln 2,
-// dq = (sum ds k) * scale and dk = (sum ds^T q_prescaled) * ln 2.  No bias, attention
-// mask or segment ids (the wrapper refuses them).
+// dq = (sum ds k) * scale and dk = (sum ds^T q_prescaled) * ln 2.
 //
-// Layouts, all contiguous, heads folded into the leading dim (b * H + h):
+// Optional, in all three kernels, in the JAX order (`_mask_block`): an additive f32
+// bias read through explicit strides for (batch, head, q row, key), so a broadcast
+// bias (a [B, 1, 1, Skv] padding mask as -1e30) is read in place and never
+// materialised as [B*H, S, Skv]; it is added as bias * log2(e) (a rounded product,
+// as JAX computes it); then the causal mask, then int32 q / kv segment ids (unequal
+// ids mask), each setting the logit to -1e30.  With a bias or segment ids, masked
+// logits take part in the max and in exp2 as JAX's do, so a row whose every key is
+// masked by segment ids gets uniform weights over its -1e30 logits (not NaN, not
+// zeros), and one masked by a -1e30 bias gets zeros, as in JAX; only keys past Skv
+// (a ragged last tile) weigh exactly 0.  Without them a separate instantiation
+// drops causally masked keys and pays no per-logit lookup (see has_extras).  lse * log2(e) is a rounded product too (__fmul_rn: no FMA may fold it
+// into the subtraction), which keeps a fully masked row's exp2(s - lse2) at 1.
+// The dq kernel also writes dbias = ds [B*H, S, Skv] f32 when asked (zeros in the
+// tiles a causal row never visits); the wrapper sums it back to the bias's shape.
+//
+// Layouts, all contiguous but the bias, heads folded into the leading dim (b * H + h):
 //   q, o, do, dq [BH, S, D]      k, v, dk, dv [BHkv, Skv, D], BH = BHkv * group
 //   lse, delta   [BH, S] float32
-// q head bh reads kv head bh / group (GQA, no replication in memory).
+//   bias         f32 at bias[b * sb + h * sh + row * sq + key * sk] (any strides, 0 too)
+//   segq, segk   [B, S], [B, Skv] int32      dbias [BH, S, Skv] float32
+// q head bh reads kv head bh / group (GQA, no replication in memory); its batch is
+// bh / H.
 //
 // Design (simple first):
 //   * tiles of 64 q rows by 64 keys; 256 threads as a 16 x 16 grid, each thread
@@ -160,6 +177,32 @@ __device__ __forceinline__ int causal_hi(int qi, int nk) {
   return min((qi * kTile + kTile + kTile - 1) / kTile, nk);
 }
 
+// The optional bias and segment ids of a call.  `heads` is H, the q heads of a batch.
+struct Extras {
+  const float* bias;
+  long long sb, sh, sq, sk;
+  const int* segq;
+  const int* segk;
+  int heads;
+};
+
+// The logit of (q head bh, row, key) after the bias and the masks, in the JAX order:
+// + bias * log2(e), then causal, then segment ids, each masking to -1e30.  Only for
+// row < S and key < Skv.
+__device__ __forceinline__ float adjust(float s, const Extras& ex, int bh, int row, int key, int S,
+                                        int Skv, int causal) {
+  const int b = bh / ex.heads;
+  if (ex.bias != nullptr) {
+    const float bv = ex.bias[b * ex.sb + (bh % ex.heads) * ex.sh + row * ex.sq + key * ex.sk];
+    s = s + __fmul_rn(bv, kLog2e);
+  }
+  if (causal && row < key) s = kNeg;
+  if (ex.segq != nullptr &&
+      ex.segq[static_cast<size_t>(b) * S + row] != ex.segk[static_cast<size_t>(b) * Skv + key])
+    s = kNeg;
+  return s;
+}
+
 template <int D>
 constexpr size_t fwd_smem() { return sizeof(float) * (2 * kTile * (D + 1) + kTile * D + kTile * kPS); }
 template <int D>
@@ -170,11 +213,11 @@ constexpr size_t dkv_smem() { return sizeof(float) * (4 * kTile * (D + 1) + 2 * 
 // ---------------------------------------------------------------------------
 // forward: one block per (q head bh, q tile qi)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool kExtras>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int S, int Skv, int group,
-                 int causal) {
+                 int causal, Extras ex) {
   constexpr int LD = D + 1;
   constexpr int kDJ = D / 16;
   extern __shared__ float smem[];
@@ -215,8 +258,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = kt * kTile + tx + 16 * j;
-        ok[j] = col < Skv && (!causal || row >= col);
-        s[r][j] = ok[j] ? s[r][j] : kNeg;
+        ok[j] = col < Skv && (kExtras || !causal || row >= col);
+        if (!ok[j] || (kExtras && row >= S))
+          s[r][j] = kNeg;
+        else if (kExtras)  // a masked key still counts, at -1e30
+          s[r][j] = adjust(s[r][j], ex, bh, row, col, S, Skv, causal);
         mx = fmaxf(mx, s[r][j]);
       }
       const float m_new = fmaxf(m[r], half_max(mx));
@@ -252,12 +298,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // ---------------------------------------------------------------------------
 // dq: one block per (q head bh, q tile qi)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool kExtras>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int S, int Skv,
-                    int group, float scale, int causal) {
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    float* __restrict__ dbias, int S, int Skv, int group, float scale,
+                    int causal, Extras ex) {
   constexpr int LD = D + 1;
   constexpr int kDJ = D / 16;
   extern __shared__ float smem[];
@@ -278,7 +325,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int r = 0; r < 4; ++r) {
     const int row = qi * kTile + ty * 4 + r;
     const size_t at = static_cast<size_t>(bh) * S + row;
-    lse2[r] = row < S ? lse[at] * kLog2e : 0.f;
+    lse2[r] = row < S ? __fmul_rn(lse[at], kLog2e) : 0.f;
     dl[r] = row < S ? delta[at] : 0.f;
   }
 
@@ -304,13 +351,30 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = kt * kTile + tx + 16 * j;
-        const bool ok = row < S && col < Skv && (!causal || row >= col);
-        const float p = ok ? exp2f(s[r][j] - lse2[r]) : 0.f;
-        ds_s[(ty * 4 + r) * kPS + tx + 16 * j] = p * (dp[r][j] - dl[r]);
+        const bool ok = row < S && col < Skv && (kExtras || !causal || row >= col);
+        const float sv =
+            kExtras && ok ? adjust(s[r][j], ex, bh, row, col, S, Skv, causal) : s[r][j];
+        const float p = ok ? exp2f(sv - lse2[r]) : 0.f;
+        const float ds = p * (dp[r][j] - dl[r]);
+        ds_s[(ty * 4 + r) * kPS + tx + 16 * j] = ds;
+        if (dbias != nullptr && ok) dbias[(static_cast<size_t>(bh) * S + row) * Skv + col] = ds;
       }
     }
     __syncwarp();
     tile_pm<D, LD>(acc, ds_s, k_s, ty, tx);
+  }
+  if (dbias != nullptr) {
+    // the key tiles a causal q tile never visits: ds is 0 there
+    for (int kt = hi; kt < nk; ++kt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = qi * kTile + ty * 4 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = kt * kTile + tx + 16 * j;
+          if (row < S && col < Skv) dbias[(static_cast<size_t>(bh) * S + row) * Skv + col] = 0.f;
+        }
+      }
   }
 
 #pragma unroll
@@ -326,12 +390,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // ---------------------------------------------------------------------------
 // dk/dv: one block per (kv head bhk, key tile ki)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool kExtras>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int S, int Skv, int group, int causal) {
+                     int S, int Skv, int group, int causal, Extras ex) {
   constexpr int LD = D + 1;
   constexpr int kDJ = D / 16;
   extern __shared__ float smem[];
@@ -368,7 +432,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       if (threadIdx.x < kTile) {
         const int row = qt * kTile + threadIdx.x;
         const size_t at = static_cast<size_t>(bh) * S + row;
-        lse_s[threadIdx.x] = row < S ? lse[at] * kLog2e : 0.f;
+        lse_s[threadIdx.x] = row < S ? __fmul_rn(lse[at], kLog2e) : 0.f;
         dl_s[threadIdx.x] = row < S ? delta[at] : 0.f;
       }
       __syncthreads();
@@ -383,8 +447,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         for (int j = 0; j < 4; ++j) {
           const int qc = tx + 16 * j;
           const int row = qt * kTile + qc;
-          const bool ok = row < S && key < Skv && (!causal || row >= key);
-          const float p = ok ? exp2f(st[r][j] - lse_s[qc]) : 0.f;
+          const bool ok = row < S && key < Skv && (kExtras || !causal || row >= key);
+          const float sv =
+              kExtras && ok ? adjust(st[r][j], ex, bh, row, key, S, Skv, causal) : st[r][j];
+          const float p = ok ? exp2f(sv - lse_s[qc]) : 0.f;
           pt_s[(ty * 4 + r) * kPS + qc] = p;
           dst_s[(ty * 4 + r) * kPS + qc] = p * (dpt[r][j] - dl_s[qc]);
         }
@@ -415,56 +481,66 @@ cudaError_t allow_smem(K kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The kernels come in two instantiations: with a bias or segment ids (kExtras), where
+// every in-range key takes part at -1e30 when masked, as in JAX; and without, where
+// a causally masked key is dropped (weight 0, which exp2(-1e30 - m) is for the real
+// running max every visited causal tile gives) and no per-logit lookup is paid.
+bool has_extras(const Extras& ex) { return ex.bias != nullptr || ex.segq != nullptr; }
+
 struct Shape {
   int BH, BHkv, S, Skv, D, causal;
   int group() const { return BH / BHkv; }
 };
 
 template <typename T, int D>
-cudaError_t fwd(const Shape& sh, const void* q, const void* k, const void* v, void* o, float* lse,
-                cudaStream_t st) {
-  auto kern = flash_fwd_kernel<T, D>;
+cudaError_t fwd(const Shape& sh, const Extras& ex, const void* q, const void* k, const void* v,
+                void* o, float* lse, cudaStream_t st) {
+  auto kern = has_extras(ex) ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
   cudaError_t err = allow_smem(kern, fwd_smem<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(sh.BH, (sh.S + kTile - 1) / kTile);
   kern<<<grid, kThreads, fwd_smem<D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, sh.S, sh.Skv, sh.group(), sh.causal);
+      static_cast<T*>(o), lse, sh.S, sh.Skv, sh.group(), sh.causal, ex);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t bwd_dq(const Shape& sh, const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, void* dq, float scale, cudaStream_t st) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
+cudaError_t bwd_dq(const Shape& sh, const Extras& ex, const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta, void* dq,
+                   float* dbias, float scale, cudaStream_t st) {
+  auto kern =
+      has_extras(ex) ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>;
   cudaError_t err = allow_smem(kern, dq_smem<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(sh.BH, (sh.S + kTile - 1) / kTile);
   kern<<<grid, kThreads, dq_smem<D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sh.S, sh.Skv, sh.group(),
-      scale, sh.causal);
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), dbias, sh.S, sh.Skv,
+      sh.group(), scale, sh.causal, ex);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t bwd_dkv(const Shape& sh, const void* q, const void* k, const void* v,
-                    const void* dout, const float* lse, const float* delta, void* dk, void* dv,
-                    cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+cudaError_t bwd_dkv(const Shape& sh, const Extras& ex, const void* q, const void* k,
+                    const void* v, const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, cudaStream_t st) {
+  auto kern =
+      has_extras(ex) ? flash_bwd_dkv_kernel<T, D, true> : flash_bwd_dkv_kernel<T, D, false>;
   cudaError_t err = allow_smem(kern, dkv_smem<D>());
   if (err != cudaSuccess) return err;
   dim3 grid(sh.BHkv, (sh.Skv + kTile - 1) / kTile);
   kern<<<grid, kThreads, dkv_smem<D>(), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh.S,
-      sh.Skv, sh.group(), sh.causal);
+      sh.Skv, sh.group(), sh.causal, ex);
   return cudaGetLastError();
 }
 
-bool valid(const Shape& sh) {
+bool valid(const Shape& sh, const Extras& ex) {
   return sh.BH > 0 && sh.BHkv > 0 && sh.BH % sh.BHkv == 0 && sh.S > 0 && sh.Skv > 0 &&
-         (sh.S + kTile - 1) / kTile <= 65535 && (sh.Skv + kTile - 1) / kTile <= 65535;
+         (sh.S + kTile - 1) / kTile <= 65535 && (sh.Skv + kTile - 1) / kTile <= 65535 &&
+         ex.heads > 0 && sh.BH % ex.heads == 0 && (ex.segq == nullptr) == (ex.segk == nullptr);
 }
 
 // dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.  F is a generic lambda taking a
@@ -478,46 +554,65 @@ cudaError_t dispatch(int dtype, int D, F&& f) {
   return cudaErrorInvalidValue;
 }
 
+Extras make_extras(const void* bias, long long bsb, long long bsh, long long bsq, long long bsk,
+                   int heads, const void* segq, const void* segk) {
+  return Extras{static_cast<const float*>(bias), bsb, bsh, bsq, bsk, static_cast<const int*>(segq),
+                static_cast<const int*>(segk), heads};
+}
+
 }  // namespace
 
 // C entry points bound with ctypes.  Each returns the cudaError_t of its launch
-// (0 on success) and does not synchronise.  q is pre-scaled by scale * log2(e).
+// (0 on success) and does not synchronise.  q is pre-scaled by scale * log2(e).  The
+// bias (f32, or null) is read at bias[b * sb + h * sh + row * sq + key * sk], heads =
+// H; segq / segk are int32 [B, S] / [B, Skv], both or neither; dbias (f32 [BH, S,
+// Skv], or null) is written by the dq kernel.
 extern "C" int prt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int BH, int BHkv, int S, int Skv, int D, int causal, int dtype,
+                             const void* bias, long long bsb, long long bsh, long long bsq,
+                             long long bsk, int heads, const void* segq, const void* segk,
                              void* stream) {
   const Shape sh{BH, BHkv, S, Skv, D, causal};
-  if (!valid(sh)) return cudaErrorInvalidValue;
+  const Extras ex = make_extras(bias, bsb, bsh, bsq, bsk, heads, segq, segk);
+  if (!valid(sh, ex)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, D, [&](auto t, auto d) {
     using T = std::remove_pointer_t<decltype(t)>;
-    return fwd<T, decltype(d)::value>(sh, q, k, v, o, static_cast<float*>(lse), st);
+    return fwd<T, decltype(d)::value>(sh, ex, q, k, v, o, static_cast<float*>(lse), st);
   });
 }
 
 extern "C" int prt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                const void* lse, const void* delta, void* dq, int BH, int BHkv,
-                                int S, int Skv, int D, float scale, int causal, int dtype,
-                                void* stream) {
+                                const void* lse, const void* delta, void* dq, void* dbias,
+                                int BH, int BHkv, int S, int Skv, int D, float scale, int causal,
+                                int dtype, const void* bias, long long bsb, long long bsh,
+                                long long bsq, long long bsk, int heads, const void* segq,
+                                const void* segk, void* stream) {
   const Shape sh{BH, BHkv, S, Skv, D, causal};
-  if (!valid(sh)) return cudaErrorInvalidValue;
+  const Extras ex = make_extras(bias, bsb, bsh, bsq, bsk, heads, segq, segk);
+  if (!valid(sh, ex)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, D, [&](auto t, auto d) {
     using T = std::remove_pointer_t<decltype(t)>;
-    return bwd_dq<T, decltype(d)::value>(sh, q, k, v, dout, static_cast<const float*>(lse),
-                                         static_cast<const float*>(delta), dq, scale, st);
+    return bwd_dq<T, decltype(d)::value>(sh, ex, q, k, v, dout, static_cast<const float*>(lse),
+                                         static_cast<const float*>(delta), dq,
+                                         static_cast<float*>(dbias), scale, st);
   });
 }
 
 extern "C" int prt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dk, void* dv, int BH,
                                  int BHkv, int S, int Skv, int D, int causal, int dtype,
+                                 const void* bias, long long bsb, long long bsh, long long bsq,
+                                 long long bsk, int heads, const void* segq, const void* segk,
                                  void* stream) {
   const Shape sh{BH, BHkv, S, Skv, D, causal};
-  if (!valid(sh)) return cudaErrorInvalidValue;
+  const Extras ex = make_extras(bias, bsb, bsh, bsq, bsk, heads, segq, segk);
+  if (!valid(sh, ex)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, D, [&](auto t, auto d) {
     using T = std::remove_pointer_t<decltype(t)>;
-    return bwd_dkv<T, decltype(d)::value>(sh, q, k, v, dout, static_cast<const float*>(lse),
+    return bwd_dkv<T, decltype(d)::value>(sh, ex, q, k, v, dout, static_cast<const float*>(lse),
                                           static_cast<const float*>(delta), dk, dv, st);
   });
 }

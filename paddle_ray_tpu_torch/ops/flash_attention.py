@@ -10,7 +10,11 @@ another ``dk`` and ``dv`` summed over the query heads that share a KV head
 dtype by ``scale * log2(e)`` and the kernels work in the exp2 domain,
 masked logits are ``-1e30`` before the max, the causal mask is top-left
 aligned (``row >= col``; it agrees with the dense path's bottom-right mask
-only when ``S == Skv``), ``l`` is clamped to ``1e-30``.
+only when ``S == Skv``), ``l`` is clamped to ``1e-30``.  An additive
+float32 bias enters as ``bias * log2(e)``, before the causal mask and the
+segment-id mask (``_mask_block``); a boolean ``attn_mask`` becomes a
+``-1e30`` bias that gets no gradient.  ``dbias`` is the dq kernel's
+``ds``, summed back to the bias's shape by autograd.
 
 Three functions dispatch by device, one per kernel of
 ``csrc/flash_attention.cu``: :func:`flash_forward`,
@@ -20,8 +24,12 @@ tensors they launch the kernel and count the launch in their
 (:func:`flash_forward_plain`, :func:`flash_backward_dq_plain`,
 :func:`flash_backward_dkv_plain`).  There is no fallback between the two:
 a CUDA tensor the kernel does not take raises.  These work on the folded
-layout ``[B*H, S, D]`` (k and v ``[B*Hkv, Skv, D]``);
-:func:`flash_attention` is the differentiable ``[B, S, H, D]`` entry.
+layout ``[B*H, S, D]`` (k and v ``[B*Hkv, Skv, D]``), with an optional
+float32 ``bias`` of shape ``[B, H, S, Skv]`` (an ``expand``-ed view: the
+kernels read it through its strides, so a broadcast mask is never
+materialised) and optional ``segment_ids = (segq [B, S], segk [B, Skv])``
+int32; :func:`flash_attention` is the differentiable ``[B, S, H, D]``
+entry.
 """
 from __future__ import annotations
 
@@ -91,25 +99,57 @@ def _expand(x: torch.Tensor, group: int) -> torch.Tensor:
     return x.float().repeat_interleave(group, dim=0)
 
 
-def _logits(qs: torch.Tensor, kf: torch.Tensor, causal: bool) -> torch.Tensor:
-    """float32 ``qs @ kf^T`` (exp2 domain), causal entries ``row < col``
-    set to -1e30."""
+def _seg_rows(seg: Optional[Tuple[torch.Tensor, torch.Tensor]],
+              bh: int) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """``(segq, segk)`` of ``[B, S]`` / ``[B, Skv]`` repeated for the
+    ``bh // B`` heads of each batch: ``[B*H, S]`` / ``[B*H, Skv]``."""
+    if seg is None:
+        return None
+    segq, segk = seg
+    h = bh // segq.shape[0]
+    return segq.repeat_interleave(h, 0), segk.repeat_interleave(h, 0)
+
+
+def _logits(qs: torch.Tensor, kf: torch.Tensor, causal: bool,
+            bias: Optional[torch.Tensor] = None,
+            seg: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+            ) -> torch.Tensor:
+    """float32 ``qs @ kf^T`` (exp2 domain) ``+ bias * log2(e)``, then the
+    causal entries ``row < col`` and the entries of unequal segment ids
+    set to -1e30 (the JAX ``_mask_block`` order).  Causal, the keys of
+    the 64-key tiles past a row's own tile are ``-inf``: the kernels, as
+    the JAX ones, never visit them, which matters only to a row whose
+    every visible key is masked."""
     s = torch.matmul(qs.float(), kf.transpose(1, 2))
+    if bias is not None:
+        s = s + bias.reshape(s.shape) * _LOG2E
     if causal:
         rows = torch.arange(s.shape[1], device=s.device)[:, None]
         cols = torch.arange(s.shape[2], device=s.device)[None, :]
         s = s.masked_fill(rows < cols, _NEG_INF)
+    seg = _seg_rows(seg, s.shape[0])
+    if seg is not None:
+        s = s.masked_fill(seg[0][:, :, None] != seg[1][:, None, :], _NEG_INF)
+    if causal:
+        unvisited = cols >= (rows // KERNEL_BLOCK + 1) * KERNEL_BLOCK
+        s = s.masked_fill(unvisited, float("-inf"))
     return s
 
 
 def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool, scale: float
+                        *, causal: bool, scale: float,
+                        bias: Optional[torch.Tensor] = None,
+                        segment_ids=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch forward: ``(o [B*H, S, D] in q's dtype, lse [B*H, S]
-    float32)``, the whole score matrix at once."""
+    float32)``, the whole score matrix at once.  The row max starts at
+    -1e30 as the kernels' running max does, so a row masked to -1e30 by
+    segment ids averages its values and one masked by a -1e30 bias
+    gives zeros, as in JAX."""
     g = _group(q, k)
-    s = _logits(_prescale_q(q, scale), _expand(k, g), causal)
-    m = s.amax(-1, keepdim=True)
+    s = _logits(_prescale_q(q, scale), _expand(k, g), causal, bias,
+                segment_ids)
+    m = s.amax(-1, keepdim=True).clamp_min(_NEG_INF)
     p = torch.exp2(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     o = torch.matmul(p, _expand(v, g)) / l
@@ -117,31 +157,38 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype), lse
 
 
-def _probs(q, k, v, do, lse, delta, causal, scale):
+def _probs(q, k, v, do, lse, delta, causal, scale, bias, seg):
     """Recomputed ``p`` and ``ds = p * (do v^T - delta)``, float32
     ``[B*H, S, Skv]``, and the pre-scaled q."""
     g = _group(q, k)
     qs = _prescale_q(q, scale)
-    p = torch.exp2(_logits(qs, _expand(k, g), causal) - lse[..., None] * _LOG2E)
+    p = torch.exp2(_logits(qs, _expand(k, g), causal, bias, seg)
+                   - lse[..., None] * _LOG2E)
     dp = torch.matmul(do.float(), _expand(v, g).transpose(1, 2))
     return p, p * (dp - delta[..., None]), qs
 
 
 def flash_backward_dq_plain(q, k, v, do, lse, delta, *, causal: bool,
-                            scale: float) -> torch.Tensor:
-    """Plain PyTorch dq: ``(sum ds k) * scale`` in q's dtype."""
-    _, ds, _ = _probs(q, k, v, do, lse, delta, causal, scale)
-    dq = torch.matmul(ds, _expand(k, _group(q, k))) * scale
-    return dq.to(q.dtype)
+                            scale: float, bias: Optional[torch.Tensor] = None,
+                            segment_ids=None, need_dbias: bool = False):
+    """Plain PyTorch dq: ``(sum ds k) * scale`` in q's dtype; with
+    ``need_dbias``, ``(dq, dbias)``, dbias the float32 ``ds [B*H, S,
+    Skv]``."""
+    _, ds, _ = _probs(q, k, v, do, lse, delta, causal, scale, bias,
+                      segment_ids)
+    dq = (torch.matmul(ds, _expand(k, _group(q, k))) * scale).to(q.dtype)
+    return (dq, ds) if need_dbias else dq
 
 
 def flash_backward_dkv_plain(q, k, v, do, lse, delta, *, causal: bool,
-                             scale: float
+                             scale: float, bias: Optional[torch.Tensor] = None,
+                             segment_ids=None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch dk, dv: ``dv = sum p^T do``, ``dk = (sum ds^T
     q_prescaled) * ln 2``, each summed over the q heads of a KV head."""
     g = _group(q, k)
-    p, ds, qs = _probs(q, k, v, do, lse, delta, causal, scale)
+    p, ds, qs = _probs(q, k, v, do, lse, delta, causal, scale, bias,
+                       segment_ids)
     bhk, skv, d = k.shape
     dv = torch.matmul(p.transpose(1, 2), do.float())
     dk = torch.matmul(ds.transpose(1, 2), qs.float())
@@ -193,14 +240,51 @@ def _check_cuda(q, k, v, *rest) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _extras(q: torch.Tensor, k: torch.Tensor,
+            bias: Optional[torch.Tensor], seg) -> tuple:
+    """The kernels' bias and segment-id arguments: ``(bias pointer, its
+    four strides, heads, segq pointer, segk pointer)``, each checked."""
+    bh, s, _ = q.shape
+    skv = k.shape[1]
+    heads = None
+    if bias is not None:
+        if bias.dim() != 4 or bias.shape[2:] != (s, skv) or \
+                bias.shape[0] * bias.shape[1] != bh:
+            raise ValueError(f"bias must be [B, H, {s}, {skv}] with B * H = "
+                             f"{bh}, got {tuple(bias.shape)}")
+        if bias.dtype != torch.float32 or bias.device != q.device:
+            raise ValueError(f"bias must be float32 on {q.device}, got "
+                             f"{bias.dtype} on {bias.device}")
+        heads = bias.shape[1]
+    if seg is not None:
+        segq, segk = seg
+        b = segq.shape[0]
+        for name, t, n in (("segq", segq, s), ("segk", segk, skv)):
+            if (t.shape != (b, n) or t.dtype != torch.int32
+                    or t.device != q.device or not t.is_contiguous()):
+                raise ValueError(f"{name} must be contiguous int32 [{b}, "
+                                 f"{n}] on {q.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+        if b == 0 or bh % b or (heads is not None and heads != bh // b):
+            raise ValueError(f"segment ids of batch {b} do not fit {bh} "
+                             f"heads (bias heads {heads})")
+        heads = bh // b
+    return ((None, 0, 0, 0, 0) if bias is None
+            else (bias.data_ptr(), *bias.stride())) + (
+        heads or 1,
+        None if seg is None else seg[0].data_ptr(),
+        None if seg is None else seg[1].data_ptr())
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.prt_flash_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.prt_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [p]
-        lib.prt_flash_bwd_dq.argtypes = ([p] * 7 + [i] * 5 + [ctypes.c_float]
-                                         + [i] * 2 + [p])
-        lib.prt_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        extras = [p] + [ll] * 4 + [i, p, p]
+        lib.prt_flash_fwd.argtypes = [p] * 5 + [i] * 7 + extras + [p]
+        lib.prt_flash_bwd_dq.argtypes = ([p] * 8 + [i] * 5 + [ctypes.c_float]
+                                         + [i] * 2 + extras + [p])
+        lib.prt_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + extras + [p]
         for fn in (lib.prt_flash_fwd, lib.prt_flash_bwd_dq,
                    lib.prt_flash_bwd_dkv):
             fn.restype = ctypes.c_int
@@ -227,13 +311,16 @@ def _device(q: torch.Tensor) -> str:
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, scale: float
+                  causal: bool = True, scale: float,
+                  bias: Optional[torch.Tensor] = None, segment_ids=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward on the folded layout: q ``[B*H, S, D]``, k/v ``[B*Hkv, Skv,
     D]`` -> ``(o [B*H, S, D] in q's dtype, lse [B*H, S] float32)``."""
     if _device(q) == "cpu":
-        return flash_forward_plain(q, k, v, causal=causal, scale=scale)
+        return flash_forward_plain(q, k, v, causal=causal, scale=scale,
+                                   bias=bias, segment_ids=segment_ids)
     _check_cuda(q, k, v)
+    extras = _extras(q, k, bias, segment_ids)
     bh, s, d = q.shape
     bhk, skv, _ = k.shape
     qs = _prescale_q(q, scale)
@@ -242,39 +329,52 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _launch("flash_attention_fwd", "prt_flash_fwd", q.device,
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), bh, bhk, s, skv, d, int(causal),
-            _KERNEL_DTYPES[q.dtype])
+            _KERNEL_DTYPES[q.dtype], *extras)
     flash_forward.launches += 1
     return o, lse
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = True,
-                      scale: float) -> torch.Tensor:
+                      scale: float, bias: Optional[torch.Tensor] = None,
+                      segment_ids=None, need_dbias: bool = False):
     """dq on the folded layout, from the forward's ``lse`` and ``delta =
-    sum(o * do, -1)`` (float32 ``[B*H, S]``)."""
+    sum(o * do, -1)`` (float32 ``[B*H, S]``); with ``need_dbias``,
+    ``(dq, dbias)``, dbias float32 ``[B*H, S, Skv]`` written by the same
+    kernel."""
     if _device(q) == "cpu":
         return flash_backward_dq_plain(q, k, v, do, lse, delta,
-                                       causal=causal, scale=scale)
+                                       causal=causal, scale=scale, bias=bias,
+                                       segment_ids=segment_ids,
+                                       need_dbias=need_dbias)
     _check_cuda(q, k, v, do, lse, delta)
+    extras = _extras(q, k, bias, segment_ids)
     bh, s, d = q.shape
     bhk, skv, _ = k.shape
     qs = _prescale_q(q, scale)
     dq = torch.empty_like(qs)
+    dbias = (torch.empty(bh, s, skv, dtype=torch.float32, device=q.device)
+             if need_dbias else None)
     _launch("flash_attention_bwd_dq", "prt_flash_bwd_dq", q.device,
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, bhk, s,
-            skv, d, scale, int(causal), _KERNEL_DTYPES[q.dtype])
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), bh, bhk, s, skv, d,
+            scale, int(causal), _KERNEL_DTYPES[q.dtype], *extras)
     flash_backward_dq.launches += 1
-    return dq
+    return (dq, dbias) if need_dbias else dq
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
-                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                       scale: float, bias: Optional[torch.Tensor] = None,
+                       segment_ids=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk and dv on the folded layout (k's shape and dtype), summed over
     the q heads of each KV head."""
     if _device(q) == "cpu":
         return flash_backward_dkv_plain(q, k, v, do, lse, delta,
-                                        causal=causal, scale=scale)
+                                        causal=causal, scale=scale,
+                                        bias=bias, segment_ids=segment_ids)
     _check_cuda(q, k, v, do, lse, delta)
+    extras = _extras(q, k, bias, segment_ids)
     bh, s, d = q.shape
     bhk, skv, _ = k.shape
     qs = _prescale_q(q, scale)
@@ -283,7 +383,8 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     _launch("flash_attention_bwd_dkv", "prt_flash_bwd_dkv", q.device,
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, bhk, s, skv, d, int(causal), _KERNEL_DTYPES[q.dtype])
+            bh, bhk, s, skv, d, int(causal), _KERNEL_DTYPES[q.dtype],
+            *extras)
     flash_backward_dkv.launches += 1
     return dk, dv
 
@@ -294,36 +395,48 @@ flash_backward_dkv.launches = 0
 
 
 def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
-                   scale: float
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` on the folded layout.  ``delta = sum(o * do, -1)``
-    in float32 is a plain op, as in the JAX package; then the dq kernel
-    and the dk/dv kernel."""
+                   scale: float, bias: Optional[torch.Tensor] = None,
+                   segment_ids=None, need_dbias: bool = False):
+    """``(dq, dk, dv)`` on the folded layout, and ``dbias`` last with
+    ``need_dbias``.  ``delta = sum(o * do, -1)`` in float32 is a plain op,
+    as in the JAX package; then the dq kernel and the dk/dv kernel."""
     delta = (o.float() * do.float()).sum(-1)
-    dq = flash_backward_dq(q, k, v, do, lse, delta, causal=causal,
-                           scale=scale)
-    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, causal=causal,
-                                scale=scale)
+    kw = dict(causal=causal, scale=scale, bias=bias, segment_ids=segment_ids)
+    dq = flash_backward_dq(q, k, v, do, lse, delta, need_dbias=need_dbias,
+                           **kw)
+    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+    if need_dbias:
+        dq, dbias = dq
+        return dq, dk, dv, dbias
     return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):
     """Folded-layout attention whose backward is the two backward kernels;
-    saves q, k, v, o and lse (the JAX custom VJP's residuals)."""
+    saves q, k, v, o and lse (the JAX custom VJP's residuals) and the bias
+    and segment ids.  dbias is computed only when the bias needs a
+    gradient; autograd sums it back through the bias's ``expand``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = flash_forward(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, bias, segq, segk, causal: bool, scale: float):
+        seg = None if segq is None else (segq, segk)
+        o, lse = flash_forward(q, k, v, causal=causal, scale=scale,
+                               bias=bias, segment_ids=seg)
+        ctx.save_for_backward(q, k, v, o, lse, bias, segq, segk)
         ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(),
-                                    causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        q, k, v, o, lse, bias, segq, segk = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        out = flash_backward(
+            q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+            scale=ctx.scale, bias=bias,
+            segment_ids=None if segq is None else (segq, segk),
+            need_dbias=need_dbias)
+        dbias = out[3].reshape(bias.shape) if need_dbias else None
+        return out[0], out[1], out[2], dbias, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -338,17 +451,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k/v ``[B, Skv, Hkv, D]`` with ``H % Hkv == 0`` (GQA/MQA) -> ``[B, S,
     H, D]`` in q's dtype.
 
+    ``bias``: additive score bias broadcastable to ``[B, H, S, Skv]``,
+    differentiable (its gradient in float32, cast to its dtype).
+    ``attn_mask``: boolean, broadcastable to ``[B, H, S, Skv]``; False
+    positions become a ``-1e30`` bias with no gradient.  Both reach the
+    kernels as an ``expand``-ed view, never materialised.
+    ``segment_ids`` (``[B, S]`` int): attention only within equal ids
+    (padded batches, packed sequences); ``kv_segment_ids`` defaults to
+    ``segment_ids`` and, as in JAX, is ignored without it.
     ``block_q``/``block_k`` (default 64, the CUDA kernels' tile) are
     checked as the JAX wrapper checks them: S and Skv must be divisible
-    by ``min(block, len)``.  ``bias``, ``attn_mask`` and the segment ids
-    are not ported yet and raise :class:`NotImplementedError`.
+    by ``min(block, len)``.
     """
-    if bias is not None or attn_mask is not None:
-        raise NotImplementedError(
-            "flash_attention bias / attn_mask are not ported yet")
-    if segment_ids is not None or kv_segment_ids is not None:
-        raise NotImplementedError(
-            "flash_attention segment_ids are not ported yet")
     b, s, h, d = q.shape
     _, skv, hkv, _ = k.shape
     if v.shape != k.shape:
@@ -358,6 +472,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
     _pick_blocks(s, skv, block_q or KERNEL_BLOCK, block_k or KERNEL_BLOCK)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    o = _Flash.apply(_fold_heads(q), _fold_heads(k), _fold_heads(v),
-                     causal, scale)
+    if attn_mask is not None:
+        mask_bias = torch.where(
+            attn_mask.to(device=q.device, dtype=torch.bool),
+            torch.zeros((), dtype=torch.float32, device=q.device),
+            torch.full((), _NEG_INF, dtype=torch.float32, device=q.device))
+        bias = mask_bias if bias is None else bias.float() + mask_bias
+    if bias is not None:
+        bias = bias.float().expand(b, h, s, skv)
+    segq = segk = None
+    if segment_ids is not None:
+        segq = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+        segk = (segq if kv_segment_ids is None else kv_segment_ids.to(
+            device=q.device, dtype=torch.int32).contiguous())
+    o = _Flash.apply(_fold_heads(q), _fold_heads(k), _fold_heads(v), bias,
+                     segq, segk, causal, scale)
     return _unfold_heads(o, b, h)

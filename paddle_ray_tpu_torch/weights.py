@@ -1,12 +1,15 @@
 """Weight conversion between the JAX package's state dicts and the port's
-models: the GPT (:class:`~.models.gpt.GPT`) and the UNet
-(:class:`~.models.unet.UNet`, whose keys are the JAX ones as they are).
+models: the GPT (:class:`~.models.gpt.GPT`), BERT
+(:class:`~.models.bert.BertForPretraining`), the UNet
+(:class:`~.models.unet.UNet`) and the fused layers of
+:mod:`~.incubate.nn` (the last two with the JAX keys as they are).
 
 The JAX ``Module.state_dict()`` (``paddle_ray_tpu/core/module.py``) is a
 flat ``{path: numpy array}`` dict.  Its parameter layout is the port's
 (linear weights ``[in, out]``, fused QKV columns ``[h, 3, d]``), so the
 conversion is a renaming: the JAX ``ModuleList`` names its children
-``blocks.items.{i}``, PyTorch's ``blocks.{i}``.  ``embedding.
+``blocks.items.{i}`` (BERT's ``bert.layers.items.{i}``), PyTorch's
+``blocks.{i}`` (``bert.layers.{i}``).  ``embedding.
 position_embeddings`` is a bare array in JAX and a parameter here; a tied
 head has no ``head.proj`` in either.
 
@@ -26,15 +29,20 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .models.bert import BertConfig, BertForPretraining
 from .models.generation import _quantize_in_place
 from .models.gpt import GPT, GPTConfig
 from .models.unet import UNet, UNetConfig
 
 __all__ = ["gpt_from_jax_state_dict", "gpt_to_jax_state_dict",
-           "unet_from_jax_state_dict", "unet_to_jax_state_dict"]
+           "bert_from_jax_state_dict", "bert_to_jax_state_dict",
+           "unet_from_jax_state_dict", "unet_to_jax_state_dict",
+           "incubate_from_jax_state_dict", "incubate_to_jax_state_dict"]
 
 _JAX_BLOCK = re.compile(r"^blocks\.items\.(\d+)\.")
 _TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.")
+_JAX_BERT_LAYER = re.compile(r"^bert\.layers\.items\.(\d+)\.")
+_TORCH_BERT_LAYER = re.compile(r"^bert\.layers\.(\d+)\.")
 
 
 def _to_torch_key(key: str) -> str:
@@ -82,6 +90,12 @@ def _copy_state(model: torch.nn.Module, given: Dict[str, np.ndarray],
         t.copy_(torch.from_numpy(arr))
 
 
+def _float_state(model: torch.nn.Module, rename=lambda k: k
+                 ) -> Dict[str, np.ndarray]:
+    return {rename(name): t.detach().float().cpu().numpy()
+            for name, t in model.state_dict().items()}
+
+
 def gpt_to_jax_state_dict(model: GPT) -> Dict[str, np.ndarray]:
     """The JAX-named state dict of ``model``: float32 numpy arrays, and
     int8 ones for an int8 decode model's values."""
@@ -106,5 +120,45 @@ def unet_from_jax_state_dict(cfg: UNetConfig, state: Dict[str, np.ndarray],
 def unet_to_jax_state_dict(model: UNet) -> Dict[str, np.ndarray]:
     """The JAX state dict of ``model``: float32 numpy arrays under the
     same keys."""
-    return {name: t.detach().float().cpu().numpy()
-            for name, t in model.state_dict().items()}
+    return _float_state(model)
+
+
+def bert_from_jax_state_dict(cfg: BertConfig, state: Dict[str, np.ndarray],
+                             *, device, dtype=None) -> BertForPretraining:
+    """A :class:`BertForPretraining` for ``cfg`` on ``device`` holding the
+    JAX state dict's weights, in ``dtype`` (default ``cfg.dtype``).  A
+    missing or unexpected key, or a shape that differs, raises."""
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    given = {_JAX_BERT_LAYER.sub(r"bert.layers.\1.", k): v
+             for k, v in state.items()}
+    with torch.no_grad():
+        model = BertForPretraining(cfg, device=device)
+        _copy_state(model, given, "BertForPretraining")
+    return model
+
+
+def bert_to_jax_state_dict(model: BertForPretraining
+                           ) -> Dict[str, np.ndarray]:
+    """The JAX-named state dict of ``model``: float32 numpy arrays."""
+    return _float_state(
+        model, lambda k: _TORCH_BERT_LAYER.sub(r"bert.layers.items.\1.", k))
+
+
+def incubate_from_jax_state_dict(layer: torch.nn.Module,
+                                 state: Dict[str, np.ndarray]
+                                 ) -> torch.nn.Module:
+    """Copy the JAX state dict of an :mod:`~.incubate.nn` layer into the
+    port's ``layer`` of the same construction (the keys are the JAX ones)
+    and return it.  A missing or unexpected key, or a shape that differs,
+    raises."""
+    with torch.no_grad():
+        _copy_state(layer, state, type(layer).__name__)
+    return layer
+
+
+def incubate_to_jax_state_dict(layer: torch.nn.Module
+                               ) -> Dict[str, np.ndarray]:
+    """The JAX state dict of an :mod:`~.incubate.nn` layer: float32 numpy
+    arrays under the same keys."""
+    return _float_state(layer)

@@ -93,7 +93,7 @@ def test_package_imports_without_jax():
     for mod in ("core.prng", "ops.decode_attention", "ops.decode_matmul",
                 "quantization.quant", "models.generation",
                 "serving.engine", "ops.groupnorm", "models.unet",
-                "nn.init"):
+                "nn.init", "ops.fused", "models.bert", "incubate.nn"):
         assert f"paddle_ray_tpu_torch.{mod}" in imported, mod
 
 

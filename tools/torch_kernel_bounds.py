@@ -31,17 +31,6 @@ def bound(name, body, caller, shape, n_bytes, ops, peak="bf16"):
 
 
 def rows():
-    act = ROWS_TRAIN * HIDDEN * 2       # one bf16 [8, 1024, 1024] activation
-    yield bound(
-        "fused_dropout_add_layernorm", "_dal_fwd_kernel fused.py:95",
-        "no bench.py caller; gpt3-350m's training activation",
-        "[8, 1024, 1024] bf16", 4 * act + ROWS_TRAIN * 8,   # x res -> y h, mu rstd
-        10 * ROWS_TRAIN * HIDDEN)
-    yield bound(
-        "fused_dropout_add_layernorm backward", "_dal_bwd_kernel fused.py:116",
-        "no bench.py caller; gpt3-350m's training activation",
-        "[8, 1024, 1024] bf16", 7 * act + ROWS_TRAIN * 8,   # x res h dy dh2 -> dx dres
-        12 * ROWS_TRAIN * HIDDEN)
     m, k, n = ROWS_TRAIN, HIDDEN, 4 * HIDDEN
     yield bound(
         "int8_matmul", "_int8_mm_kernel fused.py:320",
