@@ -124,6 +124,36 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    losses finite and falling, 48 launches each of the dropout-add-LN
    kernels and 24 of each flash kernel a step; tokens/s and one profiled
    step.
+20. int8_mm_kernel -- the int8 matmul kernel against
+   ``int8_matmul_plain`` on random int8 values and positive scales,
+   ``torch.equal`` in every case: the fused encoder's four linears at M =
+   8 x 512 (1024->3072, 1024->1024, 1024->4096, 4096->1024) and
+   gpt3-350m's fc1 at 8192 rows, each timed beside its bound, the plain
+   version and ``torch._int_mm`` followed by the two scale products (and
+   ``torch._int_mm``'s int32 product alone);
+   bfloat16 output, the ``QuantizedLinear`` form (``x_scale = 1``),
+   ragged M = 4093, N = 97 or 1000, K = 1000 or 1040.
+21. ptq_encoder -- ``encoder_train``'s 24-layer stack (same seed, bf16)
+   in eval mode, batch 8 of 512 with the padding mask: one warm-up and 5
+   timed forwards under ``torch.no_grad()`` in bf16, then
+   ``PTQ(QuantConfig())`` and the same in int8 (ms, tokens/s, peak
+   memory); per forward 96 ``int8_matmul`` launches (int8), 24 of the
+   flash forward, 48 of the dropout-add-LN forward, no backward kernel;
+   the int8 output's ``max|err| / max|ref|`` and cosine against the bf16
+   one on the valid rows (reported, not gated); one profiled forward of
+   each.
+22. ptq_check -- a 4-layer float32 stack of that width, TF32 off, batch
+   2 of 512 padded to 512 and 333, quantized on the card and as a CPU
+   copy (plain versions): equal int8 weights, the first projection and a
+   ``QuantizedLinear`` on one shared input equal bit for bit, the outputs
+   within ``max|err| / max|ref|`` 0.05 -- the int8 error's own level: a
+   last-bit difference that moves one tensor's largest activation moves
+   its per-tensor scale (see the phase, which also reports the CPU
+   stack's change under a 1e-7 relative input perturbation).
+23. qat -- ``QAT().quantize`` on a 4-layer bf16 stack of that width, 5
+   ``AdamW(1e-4)`` steps with ``encoder_train``'s loss and keys, losses
+   finite and falling; ``QAT().convert`` and one eval forward with 16
+   ``int8_matmul`` launches.
 
 Then the card's name and power limit (as ``nvidia-smi`` prints them), the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -148,7 +178,8 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # tensor cores, bf16
-                  torch.float32: 67e12}     # CUDA cores, fp32
+                  torch.float32: 67e12,     # CUDA cores, fp32
+                  torch.int8: 1979e12}      # tensor cores, int8
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 MODEL = "gpt3-350m"
@@ -173,6 +204,14 @@ ENC_LENGTHS = tuple(int(x) for x in np.linspace(288, 512, ENC_BATCH))
 DAL_KERNELS = ("fused_dropout_add_layernorm",
                "fused_dropout_add_layernorm_bwd")
 DAL_EPS, DAL_SEED = 1e-5, 12345
+# dynamic-PTQ int8 inference of the fused encoder: its four linears at
+# M = 8 x 512 rows, (name, K, N); four a layer, 96 a forward
+ENC_LINEARS = (("qkv", ENC_D, 3 * ENC_D), ("out_proj", ENC_D, ENC_D),
+               ("linear1", ENC_D, ENC_FFN), ("linear2", ENC_FFN, ENC_D))
+PTQ_TIMED, QAT_LAYERS, QAT_STEPS = 5, 4, 5
+# ptq_check: max|err| / max|ref| of the int8 stack on the card against its
+# CPU copy, at the level of the int8 error itself (see phase_ptq_check)
+PTQ_CHECK_TOL = 0.05
 
 
 def emit(phase: str, **fields) -> None:
@@ -2028,10 +2067,11 @@ class _EncoderStack(torch.nn.Module):
         super().__init__()
         self.layers = torch.nn.ModuleList(layers)
 
-    def forward(self, src, src_mask, rng):
+    def forward(self, src, src_mask, rng=None):
         from paddle_ray_tpu_torch.core import prng
         for i, layer in enumerate(self.layers):
-            src = layer(src, src_mask, rng=prng.fold_in(rng, i))
+            src = layer(src, src_mask,
+                        rng=None if rng is None else prng.fold_in(rng, i))
         return src
 
 
@@ -2040,24 +2080,34 @@ def _dal_counters():
     return dict(zip(DAL_KERNELS, (dal_forward, dal_backward)))
 
 
+def _encoder_stack(n_layers, dtype, g, device="cuda") -> _EncoderStack:
+    """The fused encoder at BERT-large width (post-LN, dropout 0.1 at the
+    residuals only), weights drawn from ``g``."""
+    from paddle_ray_tpu_torch.incubate import FusedTransformerEncoderLayer
+    return _EncoderStack([FusedTransformerEncoderLayer(
+        ENC_D, ENC_HEADS, ENC_FFN, dropout_rate=ENC_RATE, activation="gelu",
+        attn_dropout_rate=0.0, act_dropout_rate=0.0, normalize_before=False,
+        dtype=dtype, device=device, generator=g)
+        for _ in range(n_layers)])
+
+
+def _padding_mask(lengths, s, device="cuda") -> torch.Tensor:
+    """``[B, S]`` boolean: True on each row's first ``lengths[b]`` keys."""
+    return (torch.arange(s, device=device)[None, :]
+            < torch.tensor(lengths, device=device)[:, None])
+
+
 def phase_encoder_train() -> dict:
     from paddle_ray_tpu_torch.core import prng
-    from paddle_ray_tpu_torch.incubate import FusedTransformerEncoderLayer
     from paddle_ray_tpu_torch.optimizer import AdamW
     from paddle_ray_tpu_torch.parallel import build_train_step
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
-    model = _EncoderStack([FusedTransformerEncoderLayer(
-        ENC_D, ENC_HEADS, ENC_FFN, dropout_rate=ENC_RATE, activation="gelu",
-        attn_dropout_rate=0.0, act_dropout_rate=0.0, normalize_before=False,
-        dtype="bfloat16", device="cuda", generator=g)
-        for _ in range(ENC_LAYERS)])
+    model = _encoder_stack(ENC_LAYERS, "bfloat16", g)
     b, s = ENC_BATCH, ENC_SEQ
     src = torch.randn(b, s, ENC_D, generator=g, device="cuda").bfloat16()
     target = torch.randn(b, s, ENC_D, generator=g, device="cuda").bfloat16()
-    valid = (torch.arange(s, device="cuda")[None, :]
-             < torch.tensor(ENC_LENGTHS, device="cuda")[:, None])
-    src_mask = valid[:, None, None, :]
+    src_mask = _padding_mask(ENC_LENGTHS, s)[:, None, None, :]
 
     def loss_fn(m, batch, rng):
         x, mask, y = batch
@@ -2092,6 +2142,329 @@ def phase_encoder_train() -> dict:
     del ts, model, batch
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# 20. the int8 matmul kernel against its plain version
+# ---------------------------------------------------------------------------
+def _int8_bound(m, k, n, out_dtype) -> dict:
+    """The least time: the int8 operands and the float32 scales read once,
+    the output written once, over the HBM rate, against 2 M N K
+    operations over the int8 tensor-core peak; the larger of the two."""
+    es = torch.tensor([], dtype=out_dtype).element_size()
+    n_bytes = m * k + k * n + 4 * m + 4 * n + m * n * es
+    ops = 2 * m * n * k
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[torch.int8]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
+def _int8_case(name, m, k, n, out_dtype, timed, linear_form=False) -> dict:
+    """One case: the kernel (through ``int8_mm``, which takes any shape)
+    against ``int8_matmul_plain`` on the same random int8 values and
+    positive scales, ``torch.equal``; with ``timed`` the kernel, the plain
+    version and the library yardstick ``torch._int_mm`` (its B operand
+    made column-major first, outside the timing) followed by the two
+    scale products, and ``torch._int_mm``'s int32 product alone.
+    ``linear_form``: ``x_scale = 1`` and ``w_scale = s_x * s_w``, as
+    ``QuantizedLinear`` calls it."""
+    from paddle_ray_tpu_torch.ops.fused import int8_matmul_plain, int8_mm
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + m + k + n)
+    xq = torch.randint(-128, 128, (m, k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    xs = torch.rand(m, generator=g, device="cuda") * 1e-2 + 1e-3
+    ws = torch.rand(n, generator=g, device="cuda") * 1e-2 + 1e-3
+    if linear_form:
+        xs = torch.ones(m, device="cuda")
+        ws = ws * 0.0371
+    got = int8_mm(xq, wq, xs, ws, out_dtype)
+    torch.cuda.synchronize()
+    want = int8_matmul_plain(xq, wq, xs, ws, out_dtype)
+    err = float((got.float() - want.float()).abs().max())
+    if not (torch.equal(got, want) and torch.isfinite(got).all()):
+        raise AssertionError(f"int8_matmul {name}: kernel differs from the "
+                             f"plain version (max_abs_err {err})")
+    r = {"max_abs_err": err, "equal": True,
+         **_int8_bound(m, k, n, out_dtype)}
+    if timed:
+        w_cm = wq.t().contiguous().t()      # column-major, as _int_mm wants
+
+        def library():
+            return (torch._int_mm(xq, w_cm).float() * xs[:, None]
+                    * ws[None, :]).to(out_dtype)
+        r.update(ms=time_ms(lambda: int8_mm(xq, wq, xs, ws, out_dtype)),
+                 plain_ms=time_ms(lambda: int8_matmul_plain(
+                     xq, wq, xs, ws, out_dtype), iters=5),
+                 library_ms=time_ms(library),
+                 int_mm_ms=time_ms(lambda: torch._int_mm(xq, w_cm)))
+    emit("int8_mm_kernel", case=name, shape=[m, k, n],
+         out_dtype=str(out_dtype), linear_form=linear_form, timed=timed,
+         library="torch._int_mm(xq, wq column-major) then * x_scale[:, "
+                 "None] * w_scale[None, :] in float32", **r)
+    return r
+
+
+def phase_int8_mm_kernel() -> dict:
+    """The fused encoder's four linears at M = 8 x 512 and gpt3-350m's
+    fc1 at its training batch (timed), bfloat16 output, the
+    ``QuantizedLinear`` form, and ragged M, N and K (the byte-wise loads:
+    K not a multiple of 16; the vector loads with a half-empty last K
+    slab)."""
+    m = ENC_BATCH * ENC_SEQ
+    f32, bf16 = torch.float32, torch.bfloat16
+    results = {}
+    for name, mm, k, n, dt, timed, form in (
+            *((lin, m, k, n, f32, True, False) for lin, k, n in ENC_LINEARS),
+            ("fc1_8192", 8192, 1024, 4096, f32, True, False),
+            ("linear1_bf16", m, ENC_D, ENC_FFN, bf16, False, False),
+            ("linear1_quantized_linear", m, ENC_D, ENC_FFN, f32, False,
+             True),
+            ("ragged_m4093_n97_k1000", m - 3, 1000, 97, f32, False, False),
+            ("ragged_m4093_n97_k1000_bf16", m - 3, 1000, 97, bf16, False,
+             False),
+            ("ragged_m4093_n1000_k1040", m - 3, 1040, 1000, f32, False,
+             False),
+            ("tiny_5x37x3", 5, 37, 3, bf16, False, False)):
+        results[name] = _int8_case(name, mm, k, n, dt, timed, form)
+    return results
+
+
+def _int8_forward_sum(cases, layers) -> dict:
+    """One forward's ``layers`` x four int8 products: times and bounds
+    summed over the encoder cases (each launch is bounded on its own, so
+    the forward's bound is the sum of theirs), and what sets the larger
+    share of that sum."""
+    out = {key: layers * sum(cases[lin][key] for lin, _, _ in ENC_LINEARS)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by = {k: sum(cases[lin]["bound_ms"] for lin, _, _ in ENC_LINEARS
+                 if cases[lin]["bound_by"] == k)
+          for k in ("bytes", "operations")}
+    out["bound_by"] = max(by, key=by.get)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 21. dynamic-PTQ int8 inference of the fused encoder
+# ---------------------------------------------------------------------------
+def _forward_counters():
+    from paddle_ray_tpu_torch.ops.fused import int8_matmul
+    return {**_dal_counters(), **_flash_counters(), "int8_matmul": int8_matmul}
+
+
+def _timed_forward(fn, counters, per_call, what) -> dict:
+    """One warm-up and ``PTQ_TIMED`` timed calls of ``fn`` under
+    ``torch.no_grad()``, the counters set to 0 first and each held at
+    ``per_call`` a call; ms a call by the host clock ended by
+    ``torch.cuda.synchronize()``, peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PTQ_TIMED):
+            out = fn()
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    calls = PTQ_TIMED + 1
+    launches = {n: c.launches for n, c in counters.items()}
+    for n, count in launches.items():
+        if count != per_call.get(n, 0) * calls:
+            raise AssertionError(f"{what}: {n} launched {count} times in "
+                                 f"{calls} calls, want {per_call.get(n, 0)} "
+                                 f"a call")
+    return {"out": out, "ms": 1e3 * dt / PTQ_TIMED, "launches": launches,
+            "calls": calls,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_ptq_encoder() -> dict:
+    """``encoder_train``'s 24-layer stack (same seed, bf16) in eval mode:
+    the bf16 forward, then ``PTQ(QuantConfig())`` and the same forward
+    in int8, each timed and profiled once."""
+    from paddle_ray_tpu_torch.quantization import PTQ, QuantConfig
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    model = _encoder_stack(ENC_LAYERS, "bfloat16", g).eval()
+    b, s = ENC_BATCH, ENC_SEQ
+    src = torch.randn(b, s, ENC_D, generator=g, device="cuda").bfloat16()
+    valid = _padding_mask(ENC_LENGTHS, s)
+    src_mask = valid[:, None, None, :]
+    counters = _forward_counters()
+    per = {"fused_dropout_add_layernorm": 2 * ENC_LAYERS,
+           "flash_attention_fwd": ENC_LAYERS}
+    runs = {"bf16": _timed_forward(lambda: model(src, src_mask), counters,
+                                   per, "ptq_encoder bf16")}
+    groups = {"int8_matmul": ("int8_matmul",), "flash": ("flash_",),
+              "dropout_add_layernorm": ("dal_fwd",),
+              "matmul": ("gemm", "nvjet"),
+              "elementwise_and_reductions": ("elementwise", "reduce")}
+    with torch.no_grad():
+        _profile_step(lambda: model(src, src_mask), "ptq_encoder_profile",
+                      runs["bf16"]["ms"], groups)
+    ptq = PTQ(QuantConfig())
+    model = ptq.convert(ptq.quantize(model))
+    per["int8_matmul"] = 4 * ENC_LAYERS
+    runs["int8"] = _timed_forward(lambda: model(src, src_mask), counters,
+                                  per, "ptq_encoder int8")
+    with torch.no_grad():
+        _profile_step(lambda: model(src, src_mask), "ptq_encoder_profile",
+                      runs["int8"]["ms"], groups)
+    ref = runs["bf16"].pop("out")[valid].float()
+    got = runs["int8"].pop("out")[valid].float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("ptq_encoder: int8 output not finite")
+    rel = _rel_err(got, ref)
+    cos = float(torch.nn.functional.cosine_similarity(
+        got.flatten(), ref.flatten(), dim=0))
+    for r in runs.values():
+        r["tokens_per_s"] = b * s / (r["ms"] / 1e3)
+    emit("ptq_encoder", layers=ENC_LAYERS, d_model=ENC_D, heads=ENC_HEADS,
+         ffn=ENC_FFN, batch=b, seq=s, lengths=list(ENC_LENGTHS),
+         timed_calls=PTQ_TIMED, int8_vs_bf16_rel_err=rel,
+         int8_vs_bf16_cosine=cos, **runs)
+    out = {"launches": runs["int8"]["launches"]["int8_matmul"],
+           "ms": {k: r["ms"] for k, r in runs.items()}}
+    del model, src
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 22. correctness of the PTQ path on the card
+# ---------------------------------------------------------------------------
+def phase_ptq_check() -> None:
+    """A 4-layer float32 stack of the encoder's width, TF32 off, batch 2
+    of 512 padded to lengths 512 and 333, quantized on the card and as a
+    copy on the CPU (the plain versions).  Exact: the int8 weights and
+    scales equal, the first projection (whose input is the same on both
+    sides) equal bit for bit inside the forward, and ``QuantizedLinear``
+    equal on one shared input.  The stack's outputs agree only within the
+    int8 error: flash and the plain attention, and the LayerNorms, sum in
+    other orders, so a few activations take the neighbouring int8 step on
+    one side; when one of them is a tensor's largest, that tensor's
+    per-tensor scale moves and every activation is rounded on a shifted
+    grid, and later layers take many steps apart.  The phase measures that
+    floor on the CPU alone (the same stack under a 1e-7 relative
+    perturbation of its input) and holds the card to ``max|err| /
+    max|ref|`` ``PTQ_CHECK_TOL``."""
+    from paddle_ray_tpu_torch.ops.fused import int8_matmul
+    from paddle_ray_tpu_torch.quantization import quantize_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 6)
+    models = {"cuda": _encoder_stack(4, "float32", g).eval()}
+    models["cpu"] = copy.deepcopy(models["cuda"]).to("cpu")
+    models = {dev: quantize_model(m) for dev, m in models.items()}
+    b, s, lengths = 2, ENC_SEQ, (512, 333)
+    r = np.random.RandomState(SEED + 6)
+    x = torch.from_numpy(r.randn(b, s, ENC_D).astype(np.float32))
+    x_moved = x * (1 + 1e-7 * torch.from_numpy(
+        r.randn(b, s, ENC_D).astype(np.float32)))
+    valid = _padding_mask(lengths, s, device="cpu")
+    mask = valid[:, None, None, :]
+    first = {}
+
+    def keep(dev):
+        def hook(mod, inp, out):
+            first[dev] = out.cpu()       # returns None: the output stays
+        return hook
+    hooks = [m.layers[0].fused_attn.qkv.register_forward_hook(keep(dev))
+             for dev, m in models.items()]
+    int8_matmul.launches = 0
+    with torch.no_grad():
+        ys = {dev: m(x.to(dev), mask.to(dev)).cpu()
+              for dev, m in models.items()}
+        for h in hooks:
+            h.remove()
+        y_moved = models["cpu"](x_moved, mask)
+        lin = {dev: m.layers[0].ffn.linear1 for dev, m in models.items()}
+        h = torch.from_numpy(r.randn(b * s, ENC_D).astype(np.float32))
+        lin_out = {dev: lin[dev](h.to(dev)).cpu() for dev in lin}
+    launches = int8_matmul.launches
+    if launches != 4 * 4 + 1:
+        raise AssertionError(f"ptq_check: int8_matmul launched {launches} "
+                             f"times, want 17")
+    same_weights = all(torch.equal(a.cpu(), c) for a, c in zip(
+        models["cuda"].state_dict().values(),
+        models["cpu"].state_dict().values()))
+    first_equal = bool(torch.equal(first["cuda"], first["cpu"]))
+    linear_equal = bool(torch.equal(lin_out["cuda"], lin_out["cpu"]))
+    err = _rel_err(ys["cuda"][valid], ys["cpu"][valid])
+    floor = _rel_err(y_moved[valid], ys["cpu"][valid])
+    if not (same_weights and first_equal and linear_equal
+            and err <= PTQ_CHECK_TOL and torch.isfinite(ys["cuda"]).all()):
+        raise AssertionError(
+            f"ptq_check: int8 weights equal {same_weights}, first qkv "
+            f"bit-equal {first_equal}, QuantizedLinear bit-equal "
+            f"{linear_equal}, stack off by {err} (max|err| / max|ref|, "
+            f"tolerance {PTQ_CHECK_TOL}; the CPU's own floor {floor})")
+    emit("ptq_check", dtype="float32", layers=4, batch=b, seq=s,
+         lengths=list(lengths), tf32=False, rel_err=err,
+         cpu_perturbed_rel_err=floor, tol=PTQ_CHECK_TOL,
+         int8_weights_equal=same_weights, first_qkv_bit_equal=first_equal,
+         quantized_linear_bit_equal=linear_equal, launches=launches)
+    del models
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 23. QAT of the fused encoder, then its int8 conversion
+# ---------------------------------------------------------------------------
+def phase_qat() -> dict:
+    """``QAT().quantize`` on a 4-layer bf16 stack of the encoder's width:
+    ``QAT_STEPS`` ``AdamW(1e-4)`` steps (MSE, ``encoder_train``'s
+    per-step keys), losses finite and falling; then ``QAT().convert`` and
+    one eval forward, 16 int8 launches."""
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.ops.fused import int8_matmul
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    from paddle_ray_tpu_torch.quantization import (QAT, QATLinear,
+                                                   QuantizedLinear)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 7)
+    qat = QAT()
+    model = qat.quantize(_encoder_stack(QAT_LAYERS, "bfloat16", g))
+    n_qat = sum(isinstance(m, QATLinear) for m in model.modules())
+    b, s = ENC_BATCH, ENC_SEQ
+    src = torch.randn(b, s, ENC_D, generator=g, device="cuda").bfloat16()
+    target = torch.randn(b, s, ENC_D, generator=g, device="cuda").bfloat16()
+    src_mask = _padding_mask(ENC_LENGTHS, s)[:, None, None, :]
+
+    def loss_fn(m, batch, rng):
+        x, mask, y = batch
+        return ((m(x, mask, rng).float() - y.float()) ** 2).mean()
+    ts = build_train_step(model, AdamW(ENC_LR), loss_fn)
+    root = prng.PRNGKey(0)
+    losses = [float(ts.step((src, src_mask, target), prng.fold_in(root, i)))
+              for i in range(QAT_STEPS)]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"qat losses not finite and falling: {losses}")
+    model = qat.convert(ts.model).eval()
+    n_int8 = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    int8_matmul.launches = 0
+    with torch.no_grad():
+        y = model(src, src_mask)
+    launches = int8_matmul.launches
+    if not (launches == 4 * QAT_LAYERS and n_qat == n_int8 == launches
+            and torch.isfinite(y).all()):
+        raise AssertionError(f"qat: {n_qat} QATLinear, {n_int8} "
+                             f"QuantizedLinear, {launches} int8 launches a "
+                             f"forward (want {4 * QAT_LAYERS})")
+    emit("qat", layers=QAT_LAYERS, d_model=ENC_D, dtype="bfloat16",
+         batch=b, seq=s, optimizer=f"AdamW({ENC_LR})", steps=QAT_STEPS,
+         losses=losses, qat_linears=n_qat, int8_launches=launches)
+    del ts, model
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 def _entry(name, source, replaces, body, launches, case, shape,
@@ -2155,6 +2528,10 @@ def main() -> None:
     bert = phase_bert_train()
     phase_bert_check()
     enc = phase_encoder_train()
+    int8 = phase_int8_mm_kernel()
+    ptq = phase_ptq_encoder()
+    phase_ptq_check()
+    qat = phase_qat()
     train_case = flash["train_bf16"]
     runs = {"gpt": train, "bert": bert, "encoder": enc}
     flash_entries = [_entry(
@@ -2242,6 +2619,16 @@ def main() -> None:
         for name, kind, line, body in zip(
             DAL_KERNELS, ("fwd", "bwd"), (95, 116),
             ("_dal_fwd_kernel", "_dal_bwd_kernel"))]
+    fwd = _int8_forward_sum(int8, ENC_LAYERS)
+    entries.append(_entry(
+        "int8_matmul", "int8_matmul.cu", "fused.py:320", "_int8_mm_kernel",
+        ptq["launches"] + qat["launches"], int8["linear1"],
+        f"float32 out, [{ENC_BATCH} x {ENC_SEQ}, {ENC_D}] x [{ENC_D}, "
+        f"{ENC_FFN}] (the fused encoder's linear1); the 24-layer PTQ "
+        f"forward's 96 launches sum to {fwd['ms']:.4f} ms against a "
+        f"{fwd['bound_ms']:.4f} ms bound ({fwd['bound_by']}); launches: "
+        f"ptq_encoder's {ptq['launches']} and qat's {qat['launches']}; "
+        f"library_ms is torch._int_mm then the two scale products"))
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

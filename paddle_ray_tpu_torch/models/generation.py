@@ -115,10 +115,12 @@ def _head_logits(model, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _kv_quant(x: torch.Tensor):
     """x ``[..., d]`` -> (int8 values, float32 scales ``[..., 1]``),
-    clipped to [-127, 127]."""
+    clipped to [-127, 127].  The divide by 127 is a true division on every
+    device, as in JAX (PyTorch's CUDA divide by a Python number multiplies
+    by its reciprocal)."""
     xf = x.float()
     s = xf.abs().amax(-1, keepdim=True)
-    s = torch.clamp(s / 127.0, min=1e-8)
+    s = torch.clamp(s / torch.full((), 127.0, device=s.device), min=1e-8)
     q = torch.clamp(torch.round(xf / s), -127, 127)
     return q.to(torch.int8), s
 

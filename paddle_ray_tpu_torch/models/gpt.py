@@ -361,8 +361,9 @@ def _check_config(cfg: GPTConfig) -> None:
         raise NotImplementedError("MoE GPT blocks are not ported yet")
     if cfg.dropout > 0.0:
         raise NotImplementedError(
-            "dropout > 0 is not ported yet: its masks wait for a port of "
-            "JAX's threefry random bits")
+            "dropout > 0 is not ported yet: it waits for JAX's key path "
+            "through _hidden_states and _run_blocks (one key for the "
+            "embedding, one a block, two inside each block)")
     if cfg.attn_impl in _MULTI_DEVICE_ATTN:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is multi-GPU sequence "

@@ -1,5 +1,5 @@
-"""Fused dropout + residual add + LayerNorm, forward and backward (the port
-of the dropout-add-LayerNorm half of ``paddle_ray_tpu/ops/fused.py``).
+"""Fused dropout + residual add + LayerNorm, forward and backward, and the
+int8 matmul (the port of ``paddle_ray_tpu/ops/fused.py``).
 
     h = dropout(x) + residual,    y = LayerNorm(h) * weight + bias
 
@@ -20,6 +20,15 @@ plain versions (:func:`dal_forward_plain`, :func:`dal_backward_plain`).
 There is no fallback between the two: a CUDA tensor the kernels do not
 take raises.  :func:`fused_dropout_add_layernorm` is the differentiable
 entry with the JAX signature.
+
+:func:`int8_matmul` is ``(xq @ wq) * x_scale[:, None] * w_scale[None, :]``
+for int8 ``xq [M, K]`` and ``wq [K, N]``: int32 sums, then two float32
+products in that order, then the cast to ``out_dtype``.  It keeps the JAX
+signature and block rule; :func:`int8_mm` takes any shape (the dynamic-PTQ
+``QuantizedLinear`` calls it).  CUDA tensors launch the hand-written
+kernel of ``csrc/int8_matmul.cu`` (counted in ``int8_matmul.launches``),
+CPU tensors run :func:`int8_matmul_plain`, which sums in float64: exact
+for any K below 2**37, so its float32 rounding is the JAX kernel's.
 """
 from __future__ import annotations
 
@@ -33,7 +42,8 @@ from . import _build
 from ..core import prng
 
 __all__ = ["fused_dropout_add_layernorm", "dal_forward", "dal_backward",
-           "dal_forward_plain", "dal_backward_plain", "keep_mask_plain"]
+           "dal_forward_plain", "dal_backward_plain", "keep_mask_plain",
+           "int8_matmul", "int8_matmul_plain", "int8_mm", "INT8_MAX_K"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = 0xFFFFFFFF
@@ -341,3 +351,133 @@ def fused_dropout_add_layernorm(x: torch.Tensor, residual: torch.Tensor,
                       residual.reshape(-1, n).contiguous(), weight, bias,
                       seed, float(p), float(epsilon), bool(training))
     return y.reshape(orig), h.reshape(orig)
+
+
+# ---------------------------------------------------------------------------
+# int8 matmul
+# ---------------------------------------------------------------------------
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the deepest K whose int32 sums cannot overflow (|xq * wq| <= 2**14)
+INT8_MAX_K = 2 ** 17 - 1
+
+
+def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor,
+                      x_scale: torch.Tensor, w_scale: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """Plain PyTorch version, on the CPU and on CUDA alike: the int8
+    product summed in float64 (every partial sum an integer below 2**53,
+    so exact), rounded to float32, times ``x_scale[:, None]`` and then
+    ``w_scale[None, :]`` in float32, cast to ``out_dtype``."""
+    acc = (xq.double() @ wq.double()).float()
+    return (acc * x_scale.float()[:, None]
+            * w_scale.float()[None, :]).to(out_dtype)
+
+
+def _check_int8(xq, wq, x_scale, w_scale, out_dtype) -> None:
+    """The checks of both paths: types, ranks, matching dims, scale
+    lengths (the JAX wrapper's inner-dim message)."""
+    for name, t in (("xq", xq), ("wq", wq)):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name} must be int8, got {t.dtype}")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
+    m, k = xq.shape
+    k2, n = wq.shape
+    if k != k2:
+        raise ValueError(f"inner dims mismatch: {k} vs {k2}")
+    for name, t, want in (("x_scale", x_scale, m), ("w_scale", w_scale, n)):
+        if not t.is_floating_point():
+            raise TypeError(f"{name} must be floating, got {t.dtype}")
+        if tuple(t.shape) != (want,):
+            raise ValueError(f"{name} must be [{want}], got "
+                             f"{tuple(t.shape)}")
+    if not out_dtype.is_floating_point:
+        raise TypeError(f"out_dtype must be floating, got {out_dtype}")
+
+
+def _int8_lib() -> ctypes.CDLL:
+    lib = _build.load("int8_matmul")
+    if lib.prt_int8_matmul.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.prt_int8_matmul.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.prt_int8_matmul.restype = ctypes.c_int
+        lib.prt_int8_matmul_error_string.argtypes = [ctypes.c_int]
+        lib.prt_int8_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def int8_mm(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
+            w_scale: torch.Tensor, out_dtype: torch.dtype = torch.float32
+            ) -> torch.Tensor:
+    """``(xq @ wq) * x_scale[:, None] * w_scale[None, :]`` for any ``[M,
+    K] x [K, N]``, without the JAX wrapper's block rule.  CUDA tensors
+    launch ``prt_int8_matmul`` and count the launch in
+    ``int8_matmul.launches``; CPU tensors run :func:`int8_matmul_plain`.
+    A CUDA tensor the kernel does not take (another device, out_dtype
+    other than float32 / bfloat16, an empty dim, K above
+    :data:`INT8_MAX_K`, a non-contiguous operand) raises."""
+    _check_int8(xq, wq, x_scale, w_scale, out_dtype)
+    if xq.device.type == "cpu":
+        return int8_matmul_plain(xq, wq, x_scale, w_scale, out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"no int8_matmul for device {xq.device}")
+    for name, t in (("wq", wq), ("x_scale", x_scale), ("w_scale", w_scale)):
+        if t.device != xq.device:
+            raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"kernel writes float32 or bfloat16, not "
+                        f"{out_dtype}")
+    m, k = xq.shape
+    n = wq.shape[1]
+    if min(m, n, k) == 0 or k > INT8_MAX_K:
+        raise ValueError(f"kernel takes 1 <= M, N and 1 <= K <= "
+                         f"{INT8_MAX_K}, got M={m}, N={n}, K={k}")
+    if not (xq.is_contiguous() and wq.is_contiguous()):
+        raise ValueError("xq and wq must be contiguous (row-major)")
+    xs = x_scale.float().contiguous()
+    ws = w_scale.float().contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    lib = _int8_lib()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        err = lib.prt_int8_matmul(xq.data_ptr(), wq.data_ptr(),
+                                  xs.data_ptr(), ws.data_ptr(),
+                                  out.data_ptr(), m, n, k,
+                                  _OUT_DTYPES[out_dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"int8_matmul kernel launch failed: cudaError {err} "
+            f"({lib.prt_int8_matmul_error_string(err).decode()})")
+    int8_matmul.launches += 1
+    return out
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor, *, block_m: int = 256,
+                block_n: int = 256, block_k: int = 256,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Int8 x int8 -> int32 matmul with the dequantising epilogue:
+    ``out = (xq @ wq) * x_scale[:, None] * w_scale[None, :]``.
+
+    xq: ``[M, K]`` int8 (per-row scales ``x_scale [M]``); wq: ``[K, N]``
+    int8 (per-column scales ``w_scale [N]``); scales are taken in float32.
+    Raises the JAX wrapper's ``ValueError``s: an inner-dim mismatch, and
+    an M, N or K not divisible by its block clipped to the dim.  The
+    blocks are checked and kept for the signature: the CUDA kernel picks
+    its own tiling and masks ragged edges (:func:`int8_mm`)."""
+    _check_int8(xq, wq, x_scale, w_scale, out_dtype)
+    m, k = xq.shape
+    n = wq.shape[1]
+    for nm, b_ in (("block_m", block_m), ("block_n", block_n),
+                   ("block_k", block_k)):
+        if b_ <= 0:
+            raise ValueError(f"{nm} must be positive, got {b_}")
+    for dim, b_, nm in ((m, min(block_m, m), "M"), (n, min(block_n, n), "N"),
+                        (k, min(block_k, k), "K")):
+        if b_ == 0 or dim % b_:
+            raise ValueError(f"{nm}={dim} not divisible by block {b_}")
+    return int8_mm(xq, wq, x_scale, w_scale, out_dtype)
+
+
+int8_matmul.launches = 0

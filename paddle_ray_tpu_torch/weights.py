@@ -18,7 +18,11 @@ linears hold ``weight_q`` (int8), ``scale`` and ``bias``, its embedding
 ``weight_q``, ``scale`` and the pre-transposed ``weight_qT``, with the qkv
 columns already re-laid-out ``[3, h, d]``; the port builds the same int8
 modules (:func:`..models.generation.quantize_for_decode`'s structure) and
-copies the int8 values exactly.
+copies the int8 values exactly.  So does the state of a model quantized by
+the JAX ``quantize_model`` / ``PTQ`` / ``QAT.convert``: each
+``QuantizedLinear``'s ``weight_q`` (int8 ``[in, out]``), ``weight_scale``
+(float32 ``[1, out]``, or a scalar per tensor) and ``bias``, beside the
+float layers' keys (:func:`quantized_from_jax_state_dict`).
 """
 from __future__ import annotations
 
@@ -33,11 +37,13 @@ from .models.bert import BertConfig, BertForPretraining
 from .models.generation import _quantize_in_place
 from .models.gpt import GPT, GPTConfig
 from .models.unet import UNet, UNetConfig
+from .quantization.quant import quantize_model
 
 __all__ = ["gpt_from_jax_state_dict", "gpt_to_jax_state_dict",
            "bert_from_jax_state_dict", "bert_to_jax_state_dict",
            "unet_from_jax_state_dict", "unet_to_jax_state_dict",
-           "incubate_from_jax_state_dict", "incubate_to_jax_state_dict"]
+           "incubate_from_jax_state_dict", "incubate_to_jax_state_dict",
+           "quantized_from_jax_state_dict", "quantized_to_jax_state_dict"]
 
 _JAX_BLOCK = re.compile(r"^blocks\.items\.(\d+)\.")
 _TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.")
@@ -96,12 +102,18 @@ def _float_state(model: torch.nn.Module, rename=lambda k: k
             for name, t in model.state_dict().items()}
 
 
+def _state_with_int8(model: torch.nn.Module, rename=lambda k: k
+                     ) -> Dict[str, np.ndarray]:
+    """float32 numpy arrays, and int8 ones for int8 values."""
+    return {rename(name): (t.cpu().numpy() if t.dtype == torch.int8
+                           else t.detach().float().cpu().numpy())
+            for name, t in model.state_dict().items()}
+
+
 def gpt_to_jax_state_dict(model: GPT) -> Dict[str, np.ndarray]:
     """The JAX-named state dict of ``model``: float32 numpy arrays, and
     int8 ones for an int8 decode model's values."""
-    return {_to_jax_key(name): (t.cpu().numpy() if t.dtype == torch.int8
-                                else t.detach().float().cpu().numpy())
-            for name, t in model.state_dict().items()}
+    return _state_with_int8(model, _to_jax_key)
 
 
 def unet_from_jax_state_dict(cfg: UNetConfig, state: Dict[str, np.ndarray],
@@ -162,3 +174,33 @@ def incubate_to_jax_state_dict(layer: torch.nn.Module
     """The JAX state dict of an :mod:`~.incubate.nn` layer: float32 numpy
     arrays under the same keys."""
     return _float_state(layer)
+
+
+def quantized_from_jax_state_dict(model: torch.nn.Module,
+                                  state: Dict[str, np.ndarray]
+                                  ) -> torch.nn.Module:
+    """Load the state of a JAX model quantized by ``quantize_model``,
+    ``PTQ`` or ``QAT.convert`` into the port's float ``model`` of the same
+    construction (the keys are the JAX ones, as for the ``incubate.nn``
+    layers): ``model`` is quantized in place by :func:`..quantization.
+    quantize_model` -- per channel or per tensor as the state's
+    ``weight_scale`` entries say -- and the int8 weights, scales and every
+    other entry are copied exactly.  Returns the quantized model (a root
+    Linear is replaced).  A missing or unexpected key, or a shape that
+    differs, raises."""
+    scales = {np.ndim(a) for k, a in state.items()
+              if k == "weight_scale" or k.endswith(".weight_scale")}
+    if len(scales) > 1:
+        raise ValueError("state mixes per-channel and per-tensor weight "
+                         "scales; quantize_model gives one kind")
+    with torch.no_grad():
+        model = quantize_model(model, per_channel=scales != {0})
+        _copy_state(model, state, type(model).__name__)
+    return model
+
+
+def quantized_to_jax_state_dict(model: torch.nn.Module
+                                ) -> Dict[str, np.ndarray]:
+    """The JAX state dict of a quantized model: int8 numpy arrays for the
+    ``weight_q`` entries, float32 for the rest, under the same keys."""
+    return _state_with_int8(model)

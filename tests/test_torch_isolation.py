@@ -70,7 +70,7 @@ def test_triton_is_never_imported_at_module_level():
 def test_tools_are_found_by_glob():
     tools = {os.path.basename(p) for p in _sources()
              if os.path.dirname(p) == os.path.join(REPO, "tools")}
-    assert {"torch_serve_profile.py", "torch_kernel_bounds.py"} <= tools
+    assert "torch_serve_profile.py" in tools
 
 
 def test_package_imports_without_jax():
@@ -93,7 +93,8 @@ def test_package_imports_without_jax():
     for mod in ("core.prng", "ops.decode_attention", "ops.decode_matmul",
                 "quantization.quant", "models.generation",
                 "serving.engine", "ops.groupnorm", "models.unet",
-                "nn.init", "ops.fused", "models.bert", "incubate.nn"):
+                "nn.init", "ops.fused", "models.bert", "incubate.nn",
+                "ops", "quantization", "weights"):
         assert f"paddle_ray_tpu_torch.{mod}" in imported, mod
 
 
