@@ -10,7 +10,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    without CUDA.
 2. build   -- builds every kernel source under
    ``paddle_ray_tpu_torch/ops/csrc/`` with ``nvcc`` (one process per
-   source, all started together).
+   source, all started together); then ``sass``: the flash kernels'
+   ``HGMMA`` / ``HMMA`` counts in the library's SASS (``cuobjdump``)
+   beside ptxas's registers and spills, failing if a bf16 tensor-core
+   kernel holds no ``HGMMA``.
 3. kernel  -- the paged-attention kernel against its plain PyTorch
    version at the shapes the serving path gives it (float32 ``atol=1e-4``,
    bfloat16 ``atol=2e-2``, null page poisoned), over pools in the model's
@@ -20,14 +23,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 4. flash_kernel -- the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the same inputs: the training shape
    (B 8, S 1024, H 16, D 64, bf16, causal), float32 causal and full, GQA,
-   head_dim 128.  Forward within ``atol`` 1e-4 (float32) / 2e-2
+   head_dim 128, and in bf16 gpt3-760m's attention (B 4, S 1024, H 16,
+   D 96), gpt3-2.7b's (B 2, S 1024, H 32, D 80), GQA (Hkv 4) and a ragged
+   S 320.  Forward within ``atol`` 1e-4 (float32) / 2e-2
    (bfloat16); gradients within ``max|err| / max|ref|`` 1e-4 / 2e-2.
    Timed beside the bound, the plain version and
    ``scaled_dot_product_attention``.  Then the modes BERT and the fused
    encoder run, non-causal at B 8, S 512, H 16, D 64, bf16: segment ids
    with padding, a ``[B, 1, 1, S]`` mask-bias read in place (its result
    equal to the materialised bias's), a full ``[B, H, S, S]`` bias with
-   dbias from the dq kernel; each timed beside its bound and SDPA with the
+   dbias from the dq kernel; and causal with segment ids that leave
+   fourteen rows no visible key (each the mean of v over the keys below
+   ``(r // 64 + 1) * 64``); each timed beside its bound and SDPA with the
    same mask.
 5. decode_kernel -- the decode kernels against their plain versions:
    fused decode attention at B 8, h 16, d 64 over the 512-row cache of
@@ -154,6 +161,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    ``AdamW(1e-4)`` steps with ``encoder_train``'s loss and keys, losses
    finite and falling; ``QAT().convert`` and one eval forward with 16
    ``int8_matmul`` launches.
+24. train_760m -- (run after ``train_check``) ``bench.py``'s gpt3-760m row:
+   bf16, flash at head dim 96, remat off, batch 4 x 1024, ``AdamW(1e-4)``,
+   2 warm-up and 3 timed steps; losses finite and falling, each flash
+   kernel launched 24 times a step; tokens/s and MFU.
 
 Then the card's name and power limit (as ``nvidia-smi`` prints them), the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -165,6 +176,8 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
+import shutil
 import subprocess
 import time
 
@@ -187,6 +200,8 @@ PAGE, MAX_BATCH, SEED = 64, 8, 0
 # bench.py's headline training run: batch 8 of seq 1024, AdamW(1e-4)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 1e-4
 WARMUP_STEPS, TIMED_STEPS = 2, 10
+# bench.py's gpt3-760m row: batch 4 of seq 1024, remat off
+M760, M760_BATCH, M760_TIMED = "gpt3-760m", 4, 3
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 # bench.py:bench_unet: the SD-UNet config, batch 32 of 64x64 latents
@@ -315,6 +330,70 @@ def phase_build() -> None:
                          "0 bytes spill")})
     emit("build", kernels=names, seconds=round(build_s, 3),
          spill_lines=spills)
+    _sass_check(logs["flash_attention"])
+
+
+_KERNEL_NAME = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?_kernel)"
+                          r"I(f|13__nv_bfloat16)?Li(\d+)ELb([01])E")
+
+
+def _sass_check(log: str) -> None:
+    """The flash kernels' tensor-core instructions in the built library's
+    SASS (``cuobjdump --dump-sass``: ``HGMMA`` is wgmma, ``HMMA``
+    mma.sync) and their instruction counts, beside ptxas's registers and
+    spills from the build log
+    (which holds them only when the library was built in this run).
+    Fails if a bf16 tensor-core kernel holds no ``HGMMA``."""
+    from paddle_ray_tpu_torch.ops import _build
+
+    def short(mangled):
+        m = _KERNEL_NAME.search(mangled)
+        if m is None:
+            return None
+        base, t, d, extras = m.groups()
+        return f"{base}<{'float' if t == 'f' else 'bf16'},{d},{extras}>"
+
+    kernels = {}
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and short(line):
+            spill = re.search(r"(\d+) bytes spill stores", lines[i + 1])
+            regs = re.search(r"Used (\d+) registers", lines[i + 2])
+            kernels[short(line)] = {
+                "spill_store_bytes": int(spill.group(1)) if spill else None,
+                "registers": int(regs.group(1)) if regs else None}
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        emit("sass", library="flash_attention", cuobjdump=None,
+             kernels=kernels)
+        return
+    sass = subprocess.run([tool, "--dump-sass",
+                           _build._target("flash_attention")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    name, kept = None, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = short(line.split("Function :")[1].strip())
+            if name:
+                kernels.setdefault(name, {}).update(hgmma=0, hmma=0,
+                                                    instructions=0)
+                kept.append(line)
+        elif name and line.lstrip().startswith("/*") and ";" in line:
+            kernels[name]["instructions"] += 1
+            if "MMA" in line:
+                kernels[name]["hgmma"] += "HGMMA" in line
+                kernels[name]["hmma"] += "HMMA" in line
+                kept.append(line)
+    with open(os.path.join(OUT_DIR, "sass_flash_mma.txt"), "w") as f:
+        f.write("\n".join(kept) + "\n")
+    emit("sass", library="flash_attention", cuobjdump=tool, kernels=kernels)
+    without = [n for n, k in kernels.items()
+               if "_tc_kernel" in n and not k.get("hgmma")]
+    if without or not any("_tc_kernel" in n for n in kernels):
+        raise AssertionError(f"tensor-core flash kernels without HGMMA in "
+                             f"their SASS: {without or 'none found'}")
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +567,12 @@ FLASH_CASES = (
     ("full_f32", 2, 512, 16, 16, 64, torch.float32, False),
     ("gqa_hkv4_f32", 2, 512, 16, 4, 64, torch.float32, True),
     ("d128_bf16", 2, 512, 8, 8, 128, torch.bfloat16, True),
+    # gpt3-760m's attention at its bench.py batch (head dim 96) and
+    # gpt3-2.7b's (head dim 80), GQA, and a ragged S (5 tiles of 64)
+    ("d96_760m_bf16", 4, TRAIN_SEQ, 16, 16, 96, torch.bfloat16, True),
+    ("d80_2p7b_bf16", 2, TRAIN_SEQ, 32, 32, 80, torch.bfloat16, True),
+    ("gqa_hkv4_bf16", 2, 512, 16, 4, 64, torch.bfloat16, True),
+    ("ragged_s320_bf16", 4, 320, 16, 16, 64, torch.bfloat16, True),
 )
 
 
@@ -517,7 +602,7 @@ def _flash_bound(kind, b, s, h, hkv, d, dtype, causal, extra_bytes=0) -> dict:
 def phase_flash_kernel() -> dict:
     import torch.nn.functional as F
     from paddle_ray_tpu_torch.ops.flash_attention import (
-        _fold_heads, flash_backward_dkv, flash_backward_dkv_plain,
+        _fold_heads, _prescale_q, flash_backward_dkv, flash_backward_dkv_plain,
         flash_backward_dq, flash_backward_dq_plain, flash_forward,
         flash_forward_plain)
     results = {}
@@ -536,6 +621,10 @@ def phase_flash_kernel() -> dict:
         o, lse = flash_forward(qf, kf, vf, **kw)
         torch.cuda.synchronize()
         o_ref, lse_ref = flash_forward_plain(qf, kf, vf, **kw)
+        # the backward wrappers' one-pass pre-scaling rounds once, as JAX's
+        if not torch.equal(_prescale_q(qf, kw["scale"]), (qf.float() * (
+                kw["scale"] * 1.4426950408889634)).to(dtype)):
+            raise AssertionError(f"flash {name}: q * c is not one rounding")
         delta = (o_ref.float() * dof.float()).sum(-1)
         bwd = (qf, kf, vf, dof, lse_ref, delta)
         dq = flash_backward_dq(*bwd, **kw)
@@ -600,17 +689,24 @@ def phase_flash_kernel() -> dict:
 
 
 # B 8, S 512, H 16, D 64, bf16, non-causal: the shape of BERT-large's and the
-# fused encoder's attention, with the masking each runs
-FLASH_MODES = ("segments_bf16", "mask_bias_bf16", "bias_dbias_bf16")
+# fused encoder's attention, with the masking each runs; then causal with
+# segment ids that leave some rows no visible key (the 64-key visit rule)
+FLASH_MODES = ("segments_bf16", "mask_bias_bf16", "bias_dbias_bf16",
+               "causal_segments_bf16")
+# rows of batch 0 whose q segment id no key shares: first, middle and last
+# of their 64-row tile, and a run of eleven
+LONELY_ROWS = (5, 70, 127, *range(300, 311))
 
 
 def _flash_mode_cases() -> dict:
     """The flash kernels with segment ids (padding over the encoder's
     lengths), a ``[B, 1, 1, S]`` mask-bias read in place (equal to the
-    materialised bias) and a full float32 bias with dbias, against the
-    plain versions; each timed beside its bound, the plain version and
-    SDPA with the same mask (a boolean mask, or the bias as a float mask
-    without its gradient)."""
+    materialised bias), a full float32 bias with dbias, and causal with
+    segment ids where the rows ``LONELY_ROWS`` of batch 0 see no key
+    (each must give the mean of v over the keys below ``(r // 64 + 1) *
+    64``), against the plain versions; each timed beside its bound, the
+    plain version and SDPA with the same mask (a boolean mask, or the bias
+    as a float mask without its gradient)."""
     import torch.nn.functional as F
     from paddle_ray_tpu_torch.ops.flash_attention import (
         _fold_heads, flash_backward_dkv, flash_backward_dkv_plain,
@@ -628,18 +724,25 @@ def _flash_mode_cases() -> dict:
     seg = valid.to(torch.int32).contiguous()
     mask_bias = torch.where(valid, 0.0, -1e30)[:, None, None, :].float()
     full_bias = torch.randn(b, h, s, s, generator=g, device="cuda")
+    lonely = seg.clone()
+    lonely[0, list(LONELY_ROWS)] = 2
+    tril = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
     modes = {
         "segments_bf16": (dict(segment_ids=(seg, seg)),
                           seg[:, None, :, None] == seg[:, None, None, :],
-                          2 * b * s * 4),
+                          2 * b * s * 4, False),
         "mask_bias_bf16": (dict(bias=mask_bias.expand(b, h, s, s)),
-                           valid[:, None, None, :], b * s * 4),
+                           valid[:, None, None, :], b * s * 4, False),
         "bias_dbias_bf16": (dict(bias=full_bias), full_bias.to(dtype),
-                            b * h * s * s * 4),
+                            b * h * s * s * 4, False),
+        "causal_segments_bf16": (
+            dict(segment_ids=(lonely, seg)),
+            (lonely[:, None, :, None] == seg[:, None, None, :]) & tril,
+            2 * b * s * 4, True),
     }
     results = {}
-    for name, (extra, sdpa_mask, extra_bytes) in modes.items():
-        kw = dict(causal=False, scale=1.0 / d ** 0.5, **extra)
+    for name, (extra, sdpa_mask, extra_bytes, causal) in modes.items():
+        kw = dict(causal=causal, scale=1.0 / d ** 0.5, **extra)
         need = name == "bias_dbias_bf16"
         o, lse = flash_forward(qf, kf, vf, **kw)
         torch.cuda.synchronize()
@@ -665,6 +768,13 @@ def _flash_mode_cases() -> dict:
         finite = all(bool(torch.isfinite(t).all())
                      for t in (o, lse, dq, dk, dv))
         same_as_materialised = None
+        if name == "causal_segments_bf16":
+            # a row no key shares a segment with weighs its visited keys alike
+            for r in LONELY_ROWS:
+                seen = (r // 64 + 1) * 64
+                want = vf[:h, :seen].float().mean(1)
+                rel["lonely_rows"] = max(rel.get("lonely_rows", 0.0), float(
+                    (o[:h, r].float() - want).abs().max()))
         if name == "mask_bias_bf16":
             o_mat, lse_mat = flash_forward(
                 qf, kf, vf, **dict(kw, bias=extra["bias"].contiguous()))
@@ -679,7 +789,7 @@ def _flash_mode_cases() -> dict:
         qh, kh, vh, doh = (t.transpose(1, 2).contiguous()
                            for t in (q, k, v, do))
         sdpa = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
-            *a, attn_mask=sdpa_mask, scale=kw["scale"])
+            *a, attn_mask=sdpa_mask, scale=kw["scale"])  # mask holds causal
         lib_fwd = time_ms(lambda: sdpa(qh, kh, vh))
         leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
         lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
@@ -703,11 +813,12 @@ def _flash_mode_cases() -> dict:
             kind_bytes = extra_bytes + (b * h * s * s * 4
                                         if need and kind == "dq" else 0)
             r[kind].update(max_abs_err=err[kind], rel_err=rel.get(kind),
-                           **_flash_bound(kind, b, s, h, h, d, dtype, False,
+                           **_flash_bound(kind, b, s, h, h, d, dtype, causal,
                                           kind_bytes))
         results[name] = r
         emit("flash_kernel", case=name, shape=[b, s, h, d], h_kv=h,
-             dtype=str(dtype), causal=False, tol=tol,
+             dtype=str(dtype), causal=causal, tol=tol,
+             lonely_rows_max_abs_err=rel.get("lonely_rows"),
              lengths=list(ENC_LENGTHS), dbias_rel_err=rel.get("dbias"),
              equal_to_materialised_bias=same_as_materialised,
              library="scaled_dot_product_attention with the same mask "
@@ -1664,6 +1775,54 @@ def phase_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 24. gpt3-760m training: the flash kernels at head dim 96
+# ---------------------------------------------------------------------------
+def phase_train_760m() -> dict:
+    """``bench.py``'s gpt3-760m row (bf16, flash, remat off, batch 4 x
+    1024, ``AdamW(1e-4)``): 2 warm-up and 3 timed steps, losses finite and
+    falling, each flash kernel launched once per layer a step (head dim
+    1536 / 16 = 96)."""
+    from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    model = build_gpt(M760, device="cuda", dtype=torch.bfloat16,
+                      attn_impl="flash", remat=False, max_seq_len=TRAIN_SEQ,
+                      generator=g)
+    cfg = model.cfg
+    head_dim = cfg.hidden_size // cfg.num_heads
+    ts = build_train_step(model, AdamW(TRAIN_LR), gpt_loss_fn)
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (M760_BATCH, TRAIN_SEQ))).to("cuda")
+    batch = (ids, ids)
+    counters = _flash_counters()
+    run = _timed_train(ts, lambda i: ts.step(batch), counters,
+                       {n: cfg.num_layers for n in counters}, "train_760m",
+                       timed=M760_TIMED)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = M760_BATCH * TRAIN_SEQ * M760_TIMED / run["seconds"]
+    # bench.py's count: 6 N + 12 L H S FLOP per token, against the bf16 peak
+    flops_per_token = (6 * n_params
+                       + 12 * cfg.num_layers * cfg.hidden_size * TRAIN_SEQ)
+    out = {"tokens_per_s": tokens_per_s,
+           "step_ms": 1e3 * run["seconds"] / M760_TIMED,
+           "mfu": tokens_per_s * flops_per_token
+           / PEAK_OPS_PER_S[torch.bfloat16],
+           "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
+           "peak_memory_gb": run["peak_memory_gb"],
+           "launches": run["launches"]}
+    emit("train_760m", model=M760, dtype="bfloat16", attn_impl="flash",
+         head_dim=head_dim, batch=M760_BATCH, seq=TRAIN_SEQ,
+         optimizer=f"AdamW({TRAIN_LR})", steps=run["steps"],
+         timed_steps=M760_TIMED, n_params=n_params,
+         flops_per_token=flops_per_token, losses=run["losses"], **out)
+    del ts, model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 12. correctness of the training path on the card
 # ---------------------------------------------------------------------------
 def phase_train_check() -> None:
@@ -1910,9 +2069,10 @@ def _profile_step(step, label, step_ms, groups) -> None:
                           for k, t in annotation_spans(prof)])
 
 
-def _timed_train(ts, step, counters, per_step, what) -> dict:
-    """2 warm-up and 10 timed ``step()`` calls with the kernel counters
-    set to 0 first: losses finite and falling, each counter at
+def _timed_train(ts, step, counters, per_step, what,
+                 timed=TIMED_STEPS) -> dict:
+    """2 warm-up and ``timed`` (10) timed ``step()`` calls with the kernel
+    counters set to 0 first: losses finite and falling, each counter at
     ``per_step`` a step.  Returns the losses, seconds and launches."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1921,11 +2081,11 @@ def _timed_train(ts, step, counters, per_step, what) -> dict:
     losses = [step(i) for i in range(WARMUP_STEPS)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses += [step(WARMUP_STEPS + i) for i in range(TIMED_STEPS)]
+    losses += [step(WARMUP_STEPS + i) for i in range(timed)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
-    steps = WARMUP_STEPS + TIMED_STEPS
+    steps = WARMUP_STEPS + timed
     losses = [float(v) for v in losses]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{what} losses not finite and falling: "
@@ -2523,6 +2683,7 @@ def main() -> None:
     phase_generate_check()
     train = phase_train()
     phase_train_check()
+    train_760m = phase_train_760m()
     unet = phase_unet_train()
     phase_unet_check()
     bert = phase_bert_train()
@@ -2533,12 +2694,13 @@ def main() -> None:
     phase_ptq_check()
     qat = phase_qat()
     train_case = flash["train_bf16"]
-    runs = {"gpt": train, "bert": bert, "encoder": enc}
+    runs = {"gpt": train, "gpt760m": train_760m, "bert": bert,
+            "encoder": enc}
     flash_entries = [_entry(
         name, "flash_attention.cu", f"flash_attention.py:{line}", body,
         sum(r["launches"][name] for r in runs.values()), train_case[kind],
         "bf16 causal, B 8, S 1024, H 16, D 64 (launches: gpt3-350m, "
-        "BERT-large and the fused encoder training runs, "
+        "gpt3-760m, BERT-large and the fused encoder training runs, "
         + ", ".join(f"{r['launches'][name]}" for r in runs.values())
         + "); non-causal B 8, S 512 with segment ids {:.4f} ms, a [B,1,1,S] "
         "mask-bias {:.4f} ms, a full bias{} {:.4f} ms".format(

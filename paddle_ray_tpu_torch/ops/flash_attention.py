@@ -20,7 +20,10 @@ Three functions dispatch by device, one per kernel of
 ``csrc/flash_attention.cu``: :func:`flash_forward`,
 :func:`flash_backward_dq` and :func:`flash_backward_dkv`.  For CUDA
 tensors they launch the kernel and count the launch in their
-``launches``; for CPU tensors they run the plain versions
+``launches`` (bfloat16 forward and dk/dv on Hopper's tensor cores with
+``wgmma`` and TMA, rounding p and ds to bfloat16 before their products;
+float32 and dq on the CUDA cores; head dims 64, 80, 96 and 128); for CPU
+tensors they run the plain versions
 (:func:`flash_forward_plain`, :func:`flash_backward_dq_plain`,
 :func:`flash_backward_dkv_plain`).  There is no fallback between the two:
 a CUDA tensor the kernel does not take raises.  These work on the folded
@@ -49,9 +52,9 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
-# what the CUDA kernels are built for: 64 x 64 tiles, these head dims
+# what the CUDA kernels are built for: the 64-key visit rule, these head dims
 KERNEL_BLOCK = 64
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 80, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -79,8 +82,10 @@ def _pick_blocks(seq_len: int, kv_len: int, block_q: int,
 
 def _prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     # fold scale and the exp -> exp2 conversion into one multiply, rounded
-    # to q's dtype as the JAX wrapper does
-    return (q.float() * (scale * _LOG2E)).to(q.dtype)
+    # to q's dtype as the JAX wrapper does: PyTorch multiplies a bfloat16
+    # tensor by a scalar in float32 and rounds once, which is
+    # (q.float() * c).to(q.dtype) in one pass
+    return q * (scale * _LOG2E)
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +286,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.prt_flash_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         extras = [p] + [ll] * 4 + [i, p, p]
-        lib.prt_flash_fwd.argtypes = [p] * 5 + [i] * 7 + extras + [p]
+        lib.prt_flash_fwd.argtypes = ([p] * 5 + [i] * 5 + [ctypes.c_float]
+                                      + [i] * 2 + extras + [p])
         lib.prt_flash_bwd_dq.argtypes = ([p] * 8 + [i] * 5 + [ctypes.c_float]
                                          + [i] * 2 + extras + [p])
         lib.prt_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + extras + [p]
@@ -315,7 +321,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   bias: Optional[torch.Tensor] = None, segment_ids=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward on the folded layout: q ``[B*H, S, D]``, k/v ``[B*Hkv, Skv,
-    D]`` -> ``(o [B*H, S, D] in q's dtype, lse [B*H, S] float32)``."""
+    D]`` -> ``(o [B*H, S, D] in q's dtype, lse [B*H, S] float32)``.  The
+    kernel pre-scales q itself, tile by tile."""
     if _device(q) == "cpu":
         return flash_forward_plain(q, k, v, causal=causal, scale=scale,
                                    bias=bias, segment_ids=segment_ids)
@@ -323,12 +330,11 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     extras = _extras(q, k, bias, segment_ids)
     bh, s, d = q.shape
     bhk, skv, _ = k.shape
-    qs = _prescale_q(q, scale)
-    o = torch.empty_like(qs)
+    o = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", "prt_flash_fwd", q.device,
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, bhk, s, skv, d, int(causal),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, bhk, s, skv, d, scale * _LOG2E, int(causal),
             _KERNEL_DTYPES[q.dtype], *extras)
     flash_forward.launches += 1
     return o, lse

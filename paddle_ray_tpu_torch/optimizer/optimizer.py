@@ -27,6 +27,7 @@ counterpart.
 """
 from __future__ import annotations
 
+import collections
 from typing import Callable, Iterable, Optional, Tuple, Union
 
 import numpy as np
@@ -59,6 +60,11 @@ class Optimizer(torch.optim.Optimizer):
         self.weight_decay = float(weight_decay)
         self.wd_mask_fn = wd_mask_fn
         self.multi_precision = multi_precision
+        # torch wraps a class's `step` in its hook runner when the first
+        # instance of the class binds; an unbound instance has empty hooks,
+        # so its `step` still reaches the not-bound error
+        self._optimizer_step_pre_hooks = collections.OrderedDict()
+        self._optimizer_step_post_hooks = collections.OrderedDict()
         if parameters is not None:
             self.bind(parameters)
 

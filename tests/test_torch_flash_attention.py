@@ -305,3 +305,86 @@ def test_cpu_tensors_launch_no_kernel():
     q, k, v, do = _inputs(7, s=64, hkv=1)
     _port_vjp(q, k, v, do, True)
     assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dims_80_and_96_match_jax(causal, d, dtype):
+    """gpt3-2.7b's head dim 80 and gpt3-760m's 96 (GQA, S 192: three
+    64-row tiles): the forward and every gradient against the Pallas
+    kernels at ``block_q = block_k = 64``."""
+    q, k, v, do = _inputs(20 + d, s=192, h=4, hkv=2, d=d)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (
+        jnp.bfloat16, torch.bfloat16)
+    want = _jax_vjp(q, k, v, do, causal, jdt)
+    got = _port_vjp(q, k, v, do, causal, tdt)
+    out_tol, grad_tol = (F32_OUT, F32_GRAD) if dtype == "float32" else (
+        BF16, BF16)
+    np.testing.assert_allclose(got[0], want[0], **out_tol)
+    for name, g, w in zip("qkv", got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, err_msg=f"d{name}", **grad_tol)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_causal_segments_fully_masked_rows_match_jax(d):
+    """Causal attention where segment ids leave some rows no visible key:
+    rows 5, 70 and 127 (first, middle and last of their 64-key tile) and
+    the whole of rows 130-140.  Such a row weighs every key of the 64-key
+    tiles up to its own at -1e30 alike -- the mean of v over keys below
+    ``(r // 64 + 1) * 64`` -- and the keys past that not at all: the visit
+    rule every kernel keeps, whatever its own tile.  Forward and gradients
+    against JAX."""
+    s = 192
+    q, k, v, do = _inputs(30 + d, b=1, s=s, h=2, hkv=2, d=d)
+    seg = np.ones((1, s), np.int32)
+    kv_seg = np.ones((1, s), np.int32)
+    lonely = [5, 70, 127, *range(130, 141)]
+    seg[0, lonely] = 2                # segment 2 has no key at or before them
+    kv_seg[0, 150:] = 2
+
+    def jax_fn(q, k, v):
+        return jax_flash(q, k, v, causal=True, block_q=64, block_k=64,
+                         segment_ids=jnp.asarray(seg),
+                         kv_segment_ids=jnp.asarray(kv_seg))
+    out_j, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(out_j), *(np.asarray(g) for g in vjp(
+        jnp.asarray(do)))]
+    targs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*targs, causal=True,
+                          segment_ids=torch.from_numpy(seg),
+                          kv_segment_ids=torch.from_numpy(kv_seg))
+    out.backward(torch.from_numpy(do))
+    got = [out.detach().numpy(), *(a.grad.numpy() for a in targs)]
+    for r in lonely:
+        seen = (r // 64 + 1) * 64
+        np.testing.assert_allclose(got[0][0, r], v[0, :seen].mean(0),
+                                   rtol=1e-5, atol=1e-5, err_msg=f"row {r}")
+    np.testing.assert_allclose(got[0], want[0], **F32_OUT)
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, err_msg=name, **F32_GRAD)
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 72, 256])
+def test_check_cuda_head_dims(d):
+    """The CUDA kernels take head dims 64, 80, 96 and 128, and refuse any
+    other with the list in the message (checked before any launch)."""
+    q = torch.zeros(2, 64, d, dtype=torch.bfloat16)
+    if d in (64, 80, 96, 128):
+        fa._check_cuda(q, q, q)
+        fa._check_cuda(q, q, q, q, torch.zeros(2, 64), torch.zeros(2, 64))
+    else:
+        with pytest.raises(ValueError, match=r"\(64, 80, 96, 128\)"):
+            fa._check_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prescale_is_one_rounding(dtype):
+    """``_prescale_q`` (one multiply by a Python number) rounds q * scale *
+    log2(e) to q's dtype once, as the JAX wrapper's float32 product then
+    cast does; the kernels' own pre-scaling does the same in registers."""
+    q = torch.from_numpy(np.random.RandomState(40).randn(4, 96, 80)
+                         .astype(np.float32) * 3).to(dtype)
+    for scale in (80 ** -0.5, 96 ** -0.5, 0.125):
+        want = (q.float() * (scale * fa._LOG2E)).to(dtype)
+        assert torch.equal(fa._prescale_q(q, scale), want)

@@ -269,3 +269,14 @@ def test_unported_optimizer_options_raise_and_batch_device_is_checked():
     ids = torch.zeros(1, 8, dtype=torch.long, device="meta")
     with pytest.raises(ValueError, match="batch tensor"):
         ts.step((ids, ids))
+
+
+def test_unbound_step_raises_after_a_bound_instance():
+    """Once an instance of a class binds, torch runs that class's ``step``
+    through its hook wrapper; an unbound instance still raises the
+    not-bound ``RuntimeError`` there, in any test order."""
+    w = torch.nn.Parameter(torch.ones(2, 2))
+    Adam(1e-3, parameters=[("w", w)])
+    assert getattr(Adam.step, "hooked", False)
+    with pytest.raises(RuntimeError, match="not bound"):
+        Adam(1e-3).step()
