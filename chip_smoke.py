@@ -10,16 +10,22 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    without CUDA.
 2. build   -- builds every kernel source under
    ``paddle_ray_tpu_torch/ops/csrc/`` with ``nvcc`` (one process per
-   source, all started together); then ``sass``: the flash kernels'
-   ``HGMMA`` / ``HMMA`` counts in the library's SASS (``cuobjdump``)
-   beside ptxas's registers and spills, failing if a bf16 tensor-core
-   kernel holds no ``HGMMA``.
-3. kernel  -- the paged-attention kernel against its plain PyTorch
-   version at the shapes the serving path gives it (float32 ``atol=1e-4``,
-   bfloat16 ``atol=2e-2``, null page poisoned), over pools in the model's
-   dtype and int8 ones (page 32/64/128, head_dim 64/128, GQA), timed with
-   CUDA events beside its bound and one PyTorch library call on the same
-   inputs.
+   source, all started together); then ``sass``: the flash kernels' and
+   the int8 paged kernel's ``HGMMA`` / ``HMMA`` counts in the libraries'
+   SASS (``cuobjdump``) beside ptxas's registers and spills, failing if a
+   bf16 flash tensor-core kernel (forward, dq, dk/dv; dq at all four head
+   dims) holds no ``HGMMA``, a float32 flash kernel holds one, or a bf16
+   int8-pool paged kernel holds no ``HMMA``.
+3. kernel  -- the paged-attention kernels against their plain PyTorch
+   version at the shapes the serving path gives them (float32
+   ``atol=1e-4``, bfloat16 ``atol=2e-2`` and each row's ``max|err| /
+   max|ref|`` ``PAGED_BF16_REL_TOL``, null page poisoned, pad rows 0), over
+   pools in the model's dtype (head_dim 64/128) and int8 ones
+   (page 32/64/128, head_dim 64/80/96/128, GQA 1/2/4, a long ragged
+   decode of 1-8192 tokens over many splits, 128-wide mixed chunks),
+   the lengths handed over on the host as the engine does; each timed
+   with CUDA events beside its bound and one PyTorch library call on the
+   same inputs, with the int8 kernel's split plan.
 4. flash_kernel -- the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the same inputs: the training shape
    (B 8, S 1024, H 16, D 64, bf16, causal), float32 causal and full, GQA,
@@ -194,6 +200,14 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # tensor cores, bf16
                   torch.float32: 67e12,     # CUDA cores, fp32
                   torch.int8: 1979e12}      # tensor cores, int8
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 paged attention, besides TOL: max|err| / max|ref| of every output
+# row and head (``_row_rel_err``).  A long decode's outputs are averages over
+# thousands of keys, as small as 0.015, so TOL alone could pass a wrong scale
+# or a mis-weighted split.  The kernel's and the plain version's outputs,
+# each rounded to bf16 once, may differ by one unit in the last place, at
+# most 2^-7 (0.0078) of the row's largest value; the tensor cores' bf16 P
+# moves the unrounded value far less than that
+PAGED_BF16_REL_TOL = 1e-2
 
 MODEL = "gpt3-350m"
 PAGE, MAX_BATCH, SEED = 64, 8, 0
@@ -290,6 +304,15 @@ def _rel_err(got, want) -> float:
                  / want.float().abs().max())
 
 
+def _row_rel_err(got, want) -> float:
+    """The largest ``max|err| / max|ref|`` over the vectors of the last
+    axis whose reference is not all zero."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    ref = want.float().abs().amax(-1)
+    live = ref > 0
+    return float((err[live] / ref[live]).max()) if bool(live.any()) else 0.0
+
+
 # ---------------------------------------------------------------------------
 # 1. device
 # ---------------------------------------------------------------------------
@@ -330,29 +353,38 @@ def phase_build() -> None:
                          "0 bytes spill")})
     emit("build", kernels=names, seconds=round(build_s, 3),
          spill_lines=spills)
-    _sass_check(logs["flash_attention"])
+    _sass_check(logs)
 
 
 _KERNEL_NAME = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?_kernel)"
                           r"I(f|13__nv_bfloat16)?Li(\d+)ELb([01])E")
+_PAGED_Q8_NAME = re.compile(r"(paged_q8_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
 
 
-def _sass_check(log: str) -> None:
-    """The flash kernels' tensor-core instructions in the built library's
-    SASS (``cuobjdump --dump-sass``: ``HGMMA`` is wgmma, ``HMMA``
-    mma.sync) and their instruction counts, beside ptxas's registers and
-    spills from the build log
-    (which holds them only when the library was built in this run).
-    Fails if a bf16 tensor-core kernel holds no ``HGMMA``."""
+def _flash_short(mangled):
+    m = _KERNEL_NAME.search(mangled)
+    if m is None:
+        return None
+    base, t, d, extras = m.groups()
+    return f"{base}<{'float' if t == 'f' else 'bf16'},{d},{extras}>"
+
+
+def _paged_short(mangled):
+    m = _PAGED_Q8_NAME.search(mangled)
+    if m is None:
+        return None
+    base, t, d, page = m.groups()
+    return f"{base}<{'float' if t == 'f' else 'bf16'},{d},{page}>"
+
+
+def _sass_counts(library, log, short, out_name) -> dict:
+    """Each kernel's tensor-core instructions in the built library's SASS
+    (``cuobjdump --dump-sass``: ``HGMMA`` is wgmma, ``HMMA`` mma.sync) and
+    its instruction count, beside ptxas's registers and spills from the
+    build log (which holds them only when the library was built in this
+    run); the MMA lines go to ``OUT_DIR/<out_name>``.  None without
+    ``cuobjdump``."""
     from paddle_ray_tpu_torch.ops import _build
-
-    def short(mangled):
-        m = _KERNEL_NAME.search(mangled)
-        if m is None:
-            return None
-        base, t, d, extras = m.groups()
-        return f"{base}<{'float' if t == 'f' else 'bf16'},{d},{extras}>"
-
     kernels = {}
     lines = log.splitlines()
     for i, line in enumerate(lines):
@@ -365,11 +397,9 @@ def _sass_check(log: str) -> None:
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
     if not os.path.exists(tool):
-        emit("sass", library="flash_attention", cuobjdump=None,
-             kernels=kernels)
-        return
-    sass = subprocess.run([tool, "--dump-sass",
-                           _build._target("flash_attention")],
+        emit("sass", library=library, cuobjdump=None, kernels=kernels)
+        return None
+    sass = subprocess.run([tool, "--dump-sass", _build._target(library)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     name, kept = None, []
@@ -386,14 +416,39 @@ def _sass_check(log: str) -> None:
                 kernels[name]["hgmma"] += "HGMMA" in line
                 kernels[name]["hmma"] += "HMMA" in line
                 kept.append(line)
-    with open(os.path.join(OUT_DIR, "sass_flash_mma.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
         f.write("\n".join(kept) + "\n")
-    emit("sass", library="flash_attention", cuobjdump=tool, kernels=kernels)
-    without = [n for n, k in kernels.items()
-               if "_tc_kernel" in n and not k.get("hgmma")]
-    if without or not any("_tc_kernel" in n for n in kernels):
-        raise AssertionError(f"tensor-core flash kernels without HGMMA in "
-                             f"their SASS: {without or 'none found'}")
+    emit("sass", library=library, cuobjdump=tool, kernels=kernels)
+    return kernels
+
+
+def _sass_check(logs: dict) -> None:
+    """The flash kernels' and the int8 paged kernel's SASS.  Fails if a
+    bf16 flash tensor-core kernel (the forward, dq and dk/dv) holds no
+    ``HGMMA`` or a float32 flash kernel holds one, if any of the four head
+    dims lacks a bf16 dq tensor-core kernel, or if a bf16 paged int8 kernel
+    holds no ``HMMA`` (its prefill tiles' ``mma.sync``)."""
+    kernels = _sass_counts("flash_attention", logs["flash_attention"],
+                           _flash_short, "sass_flash_mma.txt")
+    paged = _sass_counts("paged_attention", logs["paged_attention"],
+                         _paged_short, "sass_paged_q8_mma.txt")
+    if kernels is None or paged is None:
+        return
+    tc = [n for n in kernels if "_tc_kernel" in n]
+    without = [n for n in tc if not kernels[n].get("hgmma")]
+    f32_with = [n for n in kernels
+                if "<float," in n and kernels[n].get("hgmma")]
+    dq_dims = {n.split(",")[1] for n in tc if "bwd_dq_tc" in n}
+    if without or f32_with or dq_dims != {"64", "80", "96", "128"}:
+        raise AssertionError(
+            f"flash SASS: tensor-core kernels without HGMMA {without}, "
+            f"float32 kernels with HGMMA {f32_with}, bf16 dq tensor-core "
+            f"head dims {sorted(dq_dims)}")
+    no_hmma = [n for n, k in paged.items()
+               if "<bf16," in n and not k.get("hmma")]
+    if no_hmma or not paged:
+        raise AssertionError(f"paged int8 kernels without HMMA in their "
+                             f"SASS: {no_hmma or 'none found'}")
 
 
 # ---------------------------------------------------------------------------
@@ -487,66 +542,106 @@ def _sdpa_inputs(c):
     return q.transpose(1, 2).contiguous(), kd, vd, mask[:, None]
 
 
-def phase_kernel() -> dict:
-    import torch.nn.functional as F
-    from paddle_ray_tpu_torch.ops.paged_attention import (
-        paged_ragged_attention, paged_ragged_attention_plain)
+def paged_cases() -> list:
+    """``(name, keyword arguments of _attention_case)`` of every paged
+    attention case, the serving path's shapes first."""
     decode = dict(width=8, q_lens=[1] * 7 + [0],
                   lengths=[1, 63, 64, 65, 700, 2048, 1500, 0])
     mixed = dict(width=128, q_lens=[128, 1, 1, 1, 1, 1, 1, 0],
                  lengths=[1664, 1, 64, 65, 700, 2048, 1000, 0])
     decode_2048 = dict(width=1, q_lens=[1] * 8, lengths=[2048] * 8)
+    # a long ragged decode over many splits (page-boundary lengths, a dead
+    # slot), GQA 4 with pages of 32 and 128, a 128-wide chunk without GQA
+    # (the serving shape), and gpt3-2.7b's head dim 80 / gpt3-760m's 96
+    long_decode = dict(width=1, q_lens=[1] * 7 + [0],
+                       lengths=[1, 64, 65, 777, 2048, 4096, 8192, 0])
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "f32" if dtype == torch.float32 else "bf16"
+    for dtype in (f32, bf16):
+        tag = "f32" if dtype == f32 else "bf16"
         cases += [
-            _attention_case(f"decode_{tag}", dtype=dtype, **decode),
-            _attention_case(f"decode_gqa_{tag}", dtype=dtype, h_kv=8,
-                            **decode),
-            _attention_case(f"mixed_{tag}", dtype=dtype, **mixed),
-            _attention_case(f"mixed_gqa_{tag}", dtype=dtype, h_kv=8,
-                            **mixed),
-            _attention_case(f"decode_q8_{tag}", dtype=dtype, q8=True,
-                            **decode),
-            _attention_case(f"mixed_gqa_q8_{tag}", dtype=dtype, h_kv=8,
-                            q8=True, **mixed),
+            (f"decode_{tag}", dict(dtype=dtype, **decode)),
+            (f"decode_gqa_{tag}", dict(dtype=dtype, h_kv=8, **decode)),
+            (f"mixed_{tag}", dict(dtype=dtype, **mixed)),
+            (f"mixed_gqa_{tag}", dict(dtype=dtype, h_kv=8, **mixed)),
+            (f"decode_q8_{tag}", dict(dtype=dtype, q8=True, **decode)),
+            (f"mixed_gqa_q8_{tag}", dict(dtype=dtype, h_kv=8, q8=True,
+                                         **mixed)),
         ]
     cases += [
-        _attention_case("decode_q8_page32_d128_bf16", dtype=torch.bfloat16,
-                        q8=True, page=32, d=128, h_q=8, h_kv=8, blocks=64,
-                        **decode),
-        _attention_case("decode_gqa_q8_page128_f32", dtype=torch.float32,
-                        q8=True, page=128, h_kv=8, blocks=16, **decode),
-        _attention_case("decode_2048_bf16", dtype=torch.bfloat16,
-                        **decode_2048),
-        _attention_case("decode_2048_q8_bf16", dtype=torch.bfloat16,
-                        q8=True, **decode_2048),
+        ("decode_q8_page32_d128_bf16", dict(dtype=bf16, q8=True, page=32,
+                                            d=128, h_q=8, h_kv=8, blocks=64,
+                                            **decode)),
+        ("decode_gqa_q8_page128_f32", dict(dtype=f32, q8=True, page=128,
+                                           h_kv=8, blocks=16, **decode)),
+        ("long_decode_q8_bf16", dict(dtype=bf16, q8=True, blocks=128,
+                                     **long_decode)),
+        ("long_decode_q8_f32", dict(dtype=f32, q8=True, blocks=128,
+                                    **long_decode)),
+        ("decode_gqa_q8_bf16", dict(dtype=bf16, q8=True, h_kv=8, **decode)),
+        ("decode_gqa4_q8_page32_bf16", dict(dtype=bf16, q8=True, page=32,
+                                            h_kv=4, blocks=64, **decode)),
+        ("mixed_gqa4_q8_page128_bf16", dict(dtype=bf16, q8=True, page=128,
+                                            h_kv=4, blocks=16, **mixed)),
+        ("mixed_q8_bf16", dict(dtype=bf16, q8=True, **mixed)),
+        ("decode_q8_d80_bf16", dict(dtype=bf16, q8=True, d=80, h_q=32,
+                                    h_kv=32, **decode)),
+        ("mixed_q8_d80_bf16", dict(dtype=bf16, q8=True, d=80, h_q=32,
+                                   h_kv=32, **mixed)),
+        ("decode_q8_d96_f32", dict(dtype=f32, q8=True, d=96, **decode)),
+        ("mixed_gqa_q8_d96_bf16", dict(dtype=bf16, q8=True, d=96, h_kv=8,
+                                       **mixed)),
+        ("decode_2048_bf16", dict(dtype=bf16, **decode_2048)),
+        ("decode_2048_q8_bf16", dict(dtype=bf16, q8=True, **decode_2048)),
     ]
+    return cases
+
+
+def phase_kernel() -> dict:
+    import torch.nn.functional as F
+    from paddle_ray_tpu_torch.ops.paged_attention import (
+        paged_ragged_attention, paged_ragged_attention_plain, q8_plan)
+    bf16 = torch.bfloat16
+    cases = [_attention_case(name, **kw) for name, kw in paged_cases()]
     results = {}
     for c in cases:
         scale = 1.0 / c["q"].shape[-1] ** 0.5
         args = (c["q"], c["pool"], c["table"], c["lengths"], c["q_lens"])
-        got = paged_ragged_attention(*args, scale=scale)
+        # the lengths on the host, as the serving engine hands them over
+        host = c["lengths"].tolist()
+        kernel = lambda: paged_ragged_attention(  # noqa: E731
+            *args, scale=scale, host_lengths=host)
+        got = kernel()
         torch.cuda.synchronize()
         want = paged_ragged_attention_plain(*args, scale=scale)
-        err = float((got.float() - want.float()).abs().max())
+        q8 = len(c["pool"]) == 4
         tol = TOL[c["q"].dtype]
-        if not (err <= tol and torch.isfinite(got).all()):
+        rel_tol = PAGED_BF16_REL_TOL if c["q"].dtype == bf16 else None
+        err = float((got.float() - want.float()).abs().max())
+        rel = _row_rel_err(got, want)
+        if not (err <= tol and torch.isfinite(got).all()
+                and (rel_tol is None or rel <= rel_tol)):
             raise AssertionError(f"{c['name']}: kernel vs plain max_abs_err "
-                                 f"{err} > {tol}")
+                                 f"{err} (tolerance {tol}), a row's "
+                                 f"max|err| / max|ref| {rel} (tolerance "
+                                 f"{rel_tol})")
         for b, ql in enumerate(c["q_lens"].tolist()):
             if not bool((got[b, ql:] == 0).all()):
                 raise AssertionError(f"{c['name']}: slot {b} pad rows not 0")
         qs, kd, vd, mask = _sdpa_inputs(c)
         r = {
-            "max_abs_err": err, "tol": tol, "q8": len(c["pool"]) == 4,
-            "ms": time_ms(lambda: paged_ragged_attention(*args, scale=scale)),
+            "max_abs_err": err, "tol": tol, "row_rel_err": rel,
+            "rel_tol": rel_tol, "q8": q8,
+            "ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: paged_ragged_attention_plain(
                 *args, scale=scale), iters=5),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qs, kd, vd, attn_mask=mask, scale=scale)),
             **_attention_bound(c),
         }
+        if q8:
+            r["splits"], r["pages_per_split"] = q8_plan(
+                c["q"], c["pool"], c["table"], host)
         results[c["name"]] = r
         pool = c["pool"]
         emit("kernel", kernel="paged_ragged_attention", case=c["name"],
@@ -2708,10 +2803,13 @@ def main() -> None:
             " with dbias" if kind == "dq" else "",
             flash[FLASH_MODES[2]][kind]["ms"])
         + ("" if kind == "fwd" else "; library_ms is SDPA's backward, for "
-           "dq and dk/dv together"))
+           "dq and dk/dv together")
+        + "; bf16 on the tensor cores (wgmma, TMA), float32 on the CUDA "
+          "cores")
         for name, kind, line, body in zip(
             FLASH_KERNELS, ("fwd", "dq", "dkv"), (76, 135, 186),
             ("_fwd_kernel", "_bwd_dq_kernel", "_bwd_dkv_kernel"))]
+    q8_case = kernel["decode_2048_q8_bf16"]
     paged_err = {q8: max(r["max_abs_err"] for r in kernel.values()
                          if r["tol"] == TOL[torch.bfloat16]
                          and r["q8"] == q8) for q8 in (False, True)}
@@ -2729,10 +2827,15 @@ def main() -> None:
         *flash_entries,
         _entry("paged_ragged_attention_q8", "paged_attention.cu",
                "paged_attention.py:134", "_kernel_q8",
-               serve_int8["launches"], kernel["decode_2048_q8_bf16"],
-               "int8 pool, bf16 q: decode, 8 slots x 2048 tokens, h=16, "
-               "d=64, page 64; library_ms is SDPA over the dequantised "
-               "cache", paged_err[True]),
+               serve_int8["launches"], q8_case,
+               f"int8 pool, bf16 q: decode, 8 slots x 2048 tokens, h=16, "
+               f"d=64, page 64; split-K: {q8_case['splits']} splits of "
+               f"{q8_case['pages_per_split']} pages merged in the launch; "
+               f"decode rows without GQA or with GQA 2 on the CUDA cores, "
+               f"tiles of more pairs on mma.sync (a 128-row chunk without "
+               f"GQA {kernel['mixed_q8_bf16']['ms']:.4f} ms against SDPA's "
+               f"{kernel['mixed_q8_bf16']['library_ms']:.4f}); library_ms is "
+               f"SDPA over the dequantised cache", paged_err[True]),
         _entry("fused_decode_attention", "decode_attention.cu",
                "decode_attention.py:71", "_kernel_bf16",
                gen_launches["fused_decode_attention"], att["bf16_pos255"],

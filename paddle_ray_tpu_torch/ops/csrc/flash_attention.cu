@@ -50,12 +50,12 @@
 //
 // Two designs, by dtype (no switch between them at run time):
 //
-// bf16 forward and dk/dv: the tensor cores (flash_fwd_tc_kernel,
+// bf16: the tensor cores (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel,
 // flash_bwd_dkv_tc_kernel).  384 threads: warpgroup 0 is the producer -- one thread
 // issues every TMA load (`cp.async.bulk.tensor`), and it gives back its registers
 // (`setmaxnreg` 24) -- and warpgroups 1 and 2 are consumers (`setmaxnreg` 240), each
 // owning 64 rows of the block's tile.  ptxas reports 168 registers at entry (384
-// threads, one block an SM) and no spill in any of the 16 instantiations but the
+// threads, one block an SM) and no spill in any of the 24 instantiations but the
 // forward's D 64 one with extras (36 bytes); the consumers' accumulators live in
 // registers above 168, which `setmaxnreg` 240 makes room for.  Every tile arrives by
 // TMA through a 3-D tensor map over [heads, rows, D] (built on the host with
@@ -93,6 +93,18 @@
 //     accumulators: 128 registers a thread at D 128) across the GQA group's q heads
 //     and the q tiles the causal rule visits, with no atomics (deterministic), and
 //     are scaled (dk by ln 2) and cast at the end.
+//   * dq, one block per (q head, 128 q rows), the last q rows of every head
+//     launched first; Q and dO of the block arrive once by TMA and stay resident,
+//     each consumer keeps its rows' lse * log2(e) and delta in registers, and the
+//     producer streams the K and V tiles (64 keys) up to the later warpgroup's
+//     causal limit while each consumer stops at its own: S = Q K^T and dP = dO V^T
+//     (both operands K-major), P = exp2(S - lse2) and dS = P (dP - delta) in f32
+//     registers, then dQ += dS K with dS as the bf16 register A operand and K
+//     through the MN-major descriptor.  dQ accumulates in f32 registers with no
+//     atomics (deterministic) and is scaled and cast at the end.  dbias, the f32 dS
+//     before its bf16 rounding, is staged tile by tile in shared memory (rows
+//     padded to 72 floats: conflict-free) and written in whole lines, 16 threads a
+//     row; zeros go to the tiles a causal row never visits.
 //   * extras: each thread looks up its two rows' (forward) or keys' (dk/dv) bias
 //     line and segment id once, and a call without a bias or segment ids reads a
 //     zero at stride 0, so the per-logit work has no branch.
@@ -104,9 +116,9 @@
 //   is rounded to bf16 before its product, as in every tensor-core flash kernel.
 //   The S and dP sums, the softmax statistics and lse stay f32.
 //
-// float32 (all three kernels) and the bf16 dq kernel: plain CUDA C++ on the CUDA
-// cores (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel).  TF32 tensor
-// cores would miss the f32 tolerance.
+// float32 (all three kernels): plain CUDA C++ on the CUDA cores (flash_fwd_kernel,
+// flash_bwd_dq_kernel, flash_bwd_dkv_kernel).  TF32 tensor cores would miss the f32
+// tolerance.
 //   * tiles of 64 q rows by 64 keys; 256 threads as a 16 x 16 grid, each thread
 //     owning a 4 x 4 piece of the 64 x 64 score tile (rows ty*4+r, keys tx+16*j) and
 //     the matching rows of the output tile (columns tx+16*j); the 16 threads of one
@@ -118,9 +130,7 @@
 //     the causal limit; dk/dv: one block per (kv head, key tile), looping over the
 //     group's q heads and the q tiles i >= ki (causal), accumulating in registers.
 //   These run the products on the f32 CUDA cores (67 TFLOP/s, the same data sheet)
-//   from shared memory, with synchronous loads behind block-wide barriers: 35-40x
-//   their bound in bf16.
-//   The dq kernel's redesign on the tensor cores is the next step.
+//   from shared memory, with synchronous loads behind block-wide barriers.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point comes through the runtime
 #include <cuda_bf16.h>
@@ -139,9 +149,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// A 16-byte load of T, widened to f32.
+// A 16-byte load of T, widened to f32 (the SIMT kernels run float32 only).
 template <typename T> struct Vec16;
 template <> struct Vec16<float> {
   static constexpr int kN = 4;
@@ -150,18 +159,6 @@ template <> struct Vec16<float> {
     f[1] = __uint_as_float(u.y);
     f[2] = __uint_as_float(u.z);
     f[3] = __uint_as_float(u.w);
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void widen(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
   }
 };
 
@@ -177,14 +174,9 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // Rows [row0, row0 + 64) of a [n_rows, D] matrix into shared memory as f32 with row
 // stride LD; rows past n_rows are zeros.  With kScale each value is multiplied by
-// `scale` and rounded to T (q's pre-scaling, as the JAX wrapper does it).
+// `scale` (q's pre-scaling, as the JAX wrapper does it in float32).
 template <typename T, int D, int LD, bool kScale = false>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
                                           int n_rows, float scale = 1.f) {
@@ -198,7 +190,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
       Vec16<T>::widen(u, f);
       if (kScale)
 #pragma unroll
-        for (int e = 0; e < kVN; ++e) f[e] = round_to(__fmul_rn(f[e], scale), T());
+        for (int e = 0; e < kVN; ++e) f[e] = __fmul_rn(f[e], scale);
     } else {
 #pragma unroll
       for (int e = 0; e < kVN; ++e) f[e] = 0.f;
@@ -1315,6 +1307,237 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// dq on the tensor cores: one block per (q head bh, 128 q rows)
+// ---------------------------------------------------------------------------
+template <int D>
+struct DqTc {
+  static constexpr int kDp = padded<D>();
+  static constexpr int kBM = 2 * 64;                 // q rows: 64 per consumer warpgroup
+  static constexpr int kBN = 64;                     // keys of a streamed tile
+  static constexpr int kQBytes = kBM * kDp * 2;      // Q or dO, resident
+  static constexpr int kTileBytes = kBN * kDp * 2;   // one K or V tile
+  static constexpr int kLdb = kBN + 8;               // a dbias staging row, in floats
+  static constexpr int kDbBytes = 64 * kLdb * 4;     // one warpgroup's dbias tile
+  static constexpr size_t kSmem =
+      1024 + 2 * kQBytes + 2 * kStages * kTileBytes + 2 * kDbBytes + 64;
+};
+
+template <int D, bool kExtras>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       float* __restrict__ dbias, int S, int Skv, int BH, int group, float scale,
+                       int causal, Extras ex) {
+  using C = DqTc<D>;
+  constexpr int kBN = C::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align_1024(smem_raw);                 // [kDp / 64][128][64]
+  uint8_t* do_s = q_s + C::kQBytes;
+  uint8_t* kv_s = do_s + C::kQBytes;                   // per stage: K, V [kDp / 64][64][64]
+  float* db_s = reinterpret_cast<float*>(kv_s + 2 * kStages * C::kTileBytes);  // [2][64][kLdb]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(db_s + 2 * 64 * C::kLdb);
+  uint64_t* qd_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kStages;
+
+  // the last q rows of every head first, so the causal triangle's long rows
+  // do not trail
+  const int n_qb = (S + C::kBM - 1) / C::kBM;
+  const int bh = blockIdx.x % BH, q0 = (n_qb - 1 - blockIdx.x / BH) * C::kBM;
+  const int nk = (Skv + kBN - 1) / kBN;
+  // key tiles a warpgroup visits: the 64-key visit rule, its rows one 64-row tile
+  auto wg_tiles = [&](int w) {
+    if (q0 + 64 * w >= S) return 0;
+    return causal ? min(q0 / kBN + w + 1, nk) : nk;
+  };
+  const int n_tiles = max(wg_tiles(0), wg_tiles(1));
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWG) {
+    // the producer: one thread loads Q and dO once, then streams K and V
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(qd_full, 2 * C::kQBytes);
+      for (int a = 0; a < C::kDp / 64; ++a) {
+        tma_load3(q_s + a * C::kBM * kAtomRow, &tq, qd_full, a * 64, q0, bh);
+        tma_load3(do_s + a * C::kBM * kAtomRow, &tdo, qd_full, a * 64, q0, bh);
+      }
+      const int bhk = bh / group;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * C::kTileBytes);
+        uint8_t* k_t = kv_s + 2 * s * C::kTileBytes;
+        for (int a = 0; a < C::kDp / 64; ++a) {
+          tma_load3(k_t + a * kBN * kAtomRow, &tk, &full[s], a * 64, j * kBN, bhk);
+          tma_load3(k_t + C::kTileBytes + a * kBN * kAtomRow, &tv, &full[s], a * 64, j * kBN,
+                    bhk);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int w = threadIdx.x / kWG - 1, tw = threadIdx.x % kWG;
+    const int warp = tw / 32, lane = threadIdx.x % 32;
+    const int col0 = 2 * (lane % 4);
+    const int row0 = q0 + 64 * w + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+    const int my_tiles = wg_tiles(w);
+    const uint8_t* q_w = q_s + 64 * w * kAtomRow;
+    const uint8_t* do_w = do_s + 64 * w * kAtomRow;
+    float* db_w = db_s + w * 64 * C::kLdb;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      const size_t at = static_cast<size_t>(bh) * S + row;
+      lse2[i] = row < S ? __fmul_rn(lse[at], kLog2e) : 0.f;
+      dl[i] = row < S ? delta[at] : 0.f;
+    }
+    // with extras: the thread's two rows' bias lines and segment ids, looked up
+    // once (a zero at stride 0 where the call has none)
+    const long long bias_sk = ex.bias != nullptr ? ex.sk : 0;
+    const int seg_sk = ex.segk != nullptr;
+    const int b = bh / ex.heads;
+    const int* segk_b = ex.segk != nullptr ? ex.segk + static_cast<size_t>(b) * Skv : &kZeroSeg;
+    const float* bias_r[2];
+    int seg_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = min(row0 + 8 * i, S - 1);  // rows past S are never adjusted
+      bias_r[i] = ex.bias != nullptr ? ex.bias + b * ex.sb + (bh % ex.heads) * ex.sh + row * ex.sq
+                                     : &kZeroBias;
+      seg_r[i] = kExtras && ex.segq != nullptr ? ex.segq[static_cast<size_t>(b) * S + row] : 0;
+    }
+    // the warpgroup's dbias rows [wr0, wr0 + 64), written through db_w in whole lines
+    const int wr0 = q0 + 64 * w;
+    auto dbias_rows = [&](int key0, int keys, bool zeros) {
+      // 16 threads a row, four keys a thread; a row's keys are contiguous
+      for (int i = tw; i < 64 * (kBN / 4); i += kWG) {
+        const int r = i / (kBN / 4), c = 4 * (i % (kBN / 4));
+        const int row = wr0 + r;
+        if (row >= S || c >= keys) continue;
+        float4 v = zeros ? make_float4(0.f, 0.f, 0.f, 0.f)
+                         : *reinterpret_cast<const float4*>(db_w + r * C::kLdb + c);
+        float* dst = dbias + (static_cast<size_t>(bh) * S + row) * Skv + key0 + c;
+        if ((Skv & 3) == 0 && c + 4 <= keys) {
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+          const float e[4] = {v.x, v.y, v.z, v.w};
+          for (int u = 0; u < 4 && c + u < keys; ++u) dst[u] = e[u];
+        }
+      }
+    };
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(qd_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const uint8_t* k_t = kv_s + 2 * s * C::kTileBytes;
+      const uint8_t* v_t = k_t + C::kTileBytes;
+      if (j < my_tiles) {
+        // S = Q K^T and dP = dO V^T, f32, both operands K-major as stored
+        float sc[kBN / 2], dp[kBN / 2];
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) sc[i] = dp[i] = 0.f;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<kBN>::template ss<0, 0>(sc, desc_k(q_w + kslice(kk, C::kBM)),
+                                        desc_k(k_t + kslice(kk, kBN)), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<kBN>::template ss<0, 0>(dp, desc_k(do_w + kslice(kk, C::kBM)),
+                                        desc_k(v_t + kslice(kk, kBN)), kk > 0);
+        wg_commit();
+        wg_wait();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // P = exp2(S - lse2) and dS = P (dP - delta) in f32; the extras as `adjust`
+        // with no branch (bias * log2(e), then causal, then segment ids)
+        const int k0 = j * kBN;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + 8 * i;
+#pragma unroll
+          for (int jj = 0; jj < kBN / 8; ++jj)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int col = k0 + 8 * jj + col0 + c;
+              const int idx = 4 * jj + 2 * i + c;
+              const bool ok = row < S && col < Skv && (kExtras || !causal || row >= col);
+              float sv = sc[idx];
+              if (kExtras) {
+                const int cc = min(col, Skv - 1);
+                const float y = sv + __fmul_rn(bias_r[i][cc * bias_sk], kLog2e);
+                sv = (causal && row < col) || seg_r[i] != segk_b[cc * seg_sk] ? kNeg : y;
+              }
+              const float p = ok ? exp2f(sv - lse2[i]) : 0.f;
+              dp[idx] = p * (dp[idx] - dl[i]);
+            }
+        }
+        if (dbias != nullptr) {
+          // dbias = the f32 dS, staged so the warpgroup writes whole lines
+          named_bar_sync(1 + w, kWG);  // the previous tile's rows are written out
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int jj = 0; jj < kBN / 8; ++jj)
+              *reinterpret_cast<float2*>(db_w + (16 * warp + lane / 4 + 8 * i) * C::kLdb +
+                                         8 * jj + col0) =
+                  make_float2(dp[4 * jj + 2 * i], dp[4 * jj + 2 * i + 1]);
+          named_bar_sync(1 + w, kWG);
+          dbias_rows(k0, min(kBN, Skv - k0), false);
+        }
+
+        // dQ += dS K: dS as bf16 register A operands, K through the MN-major descriptor
+        uint32_t da[kBN / 16][4];
+        acc_to_a<kBN>(dp, da);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          Wgmma<D>::template rs<1>(acc, da[kk], desc_mn(k_t + kk * 16 * kAtomRow, kBN * kAtomRow),
+                                   1);
+        wg_commit();
+        wg_wait();
+        fence_regs(acc);
+        fence_regs(da);
+      }
+      mbar_arrive(&empty[s]);
+    }
+    // dbias is 0 in the key tiles a causal row never visits
+    if (dbias != nullptr)
+      for (int t = my_tiles; t < nk; ++t) dbias_rows(t * kBN, min(kBN, Skv - t * kBN), true);
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= S) continue;
+      bf16* drow = dq + (static_cast<size_t>(bh) * S + row) * D + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <typename K>
@@ -1429,6 +1652,29 @@ cudaError_t bwd_dq(const Shape& sh, const Extras& ex, const void* q, const void*
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t bwd_dq_tc(const Shape& sh, const Extras& ex, const void* q, const void* k,
+                      const void* v, const void* dout, const float* lse, const float* delta,
+                      void* dq, float* dbias, float scale, cudaStream_t st) {
+  using C = DqTc<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = make_map(&tq, q, sh.BH, sh.S, D, C::kBM);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, sh.BH, sh.S, D, C::kBM);
+  if (err == cudaSuccess) err = make_map(&tk, k, sh.BHkv, sh.Skv, D, C::kBN);
+  if (err == cudaSuccess) err = make_map(&tv, v, sh.BHkv, sh.Skv, D, C::kBN);
+  if (err != cudaSuccess) return err;
+  auto kern =
+      has_extras(ex) ? flash_bwd_dq_tc_kernel<D, true> : flash_bwd_dq_tc_kernel<D, false>;
+  err = allow_smem(kern, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(sh.BH) * ((sh.S + C::kBM - 1) / C::kBM);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<static_cast<int>(blocks), kTcThreads, C::kSmem, st>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), dbias, sh.S, sh.Skv, sh.BH,
+      sh.group(), scale, sh.causal, ex);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t bwd_dkv(const Shape& sh, const Extras& ex, const void* q, const void* k,
                     const void* v, const void* dout, const float* lse, const float* delta,
@@ -1508,8 +1754,8 @@ constexpr bool is_bf16() { return std::is_same<T, bf16>::value; }
 // backward entries take q pre-scaled so.  The
 // bias (f32, or null) is read at bias[b * sb + h * sh + row * sq + key * sk], heads =
 // H; segq / segk are int32 [B, S] / [B, Skv], both or neither; dbias (f32 [BH, S,
-// Skv], or null) is written by the dq kernel.  bf16 forward and dk/dv run on the
-// tensor cores, everything else on the SIMT kernels.
+// Skv], or null) is written by the dq kernel.  bf16 runs on the tensor-core
+// kernels, float32 on the SIMT ones.
 extern "C" int prt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int BH, int BHkv, int S, int Skv, int D, float qscale, int causal,
                              int dtype,
@@ -1542,9 +1788,14 @@ extern "C" int prt_flash_bwd_dq(const void* q, const void* k, const void* v, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, D, [&](auto t, auto d) {
     using T = std::remove_pointer_t<decltype(t)>;
-    return bwd_dq<T, decltype(d)::value>(sh, ex, q, k, v, dout, static_cast<const float*>(lse),
-                                         static_cast<const float*>(delta), dq,
-                                         static_cast<float*>(dbias), scale, st);
+    constexpr int kD = decltype(d)::value;
+    const float* l = static_cast<const float*>(lse);
+    const float* dl = static_cast<const float*>(delta);
+    float* db = static_cast<float*>(dbias);
+    if constexpr (is_bf16<T>())
+      return bwd_dq_tc<kD>(sh, ex, q, k, v, dout, l, dl, dq, db, scale, st);
+    else
+      return bwd_dq<T, kD>(sh, ex, q, k, v, dout, l, dl, dq, db, scale, st);
   });
 }
 

@@ -20,9 +20,9 @@ Three functions dispatch by device, one per kernel of
 ``csrc/flash_attention.cu``: :func:`flash_forward`,
 :func:`flash_backward_dq` and :func:`flash_backward_dkv`.  For CUDA
 tensors they launch the kernel and count the launch in their
-``launches`` (bfloat16 forward and dk/dv on Hopper's tensor cores with
-``wgmma`` and TMA, rounding p and ds to bfloat16 before their products;
-float32 and dq on the CUDA cores; head dims 64, 80, 96 and 128); for CPU
+``launches`` (bfloat16 on Hopper's tensor cores with ``wgmma`` and TMA,
+rounding p and ds to bfloat16 before their products; float32 on the CUDA
+cores; head dims 64, 80, 96 and 128); for CPU
 tensors they run the plain versions
 (:func:`flash_forward_plain`, :func:`flash_backward_dq_plain`,
 :func:`flash_backward_dkv_plain`).  There is no fallback between the two:
@@ -340,6 +340,42 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+def _dq_kernel(qs, k, v, do, lse, delta, causal, scale, bias, segment_ids,
+               need_dbias):
+    """Launch the dq kernel on q pre-scaled by :func:`_prescale_q`
+    (arguments checked by the caller)."""
+    extras = _extras(qs, k, bias, segment_ids)
+    bh, s, d = qs.shape
+    bhk, skv, _ = k.shape
+    dq = torch.empty_like(qs)
+    dbias = (torch.empty(bh, s, skv, dtype=torch.float32, device=qs.device)
+             if need_dbias else None)
+    _launch("flash_attention_bwd_dq", "prt_flash_bwd_dq", qs.device,
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), bh, bhk, s, skv, d,
+            scale, int(causal), _KERNEL_DTYPES[qs.dtype], *extras)
+    flash_backward_dq.launches += 1
+    return (dq, dbias) if need_dbias else dq
+
+
+def _dkv_kernel(qs, k, v, do, lse, delta, causal, bias, segment_ids):
+    """Launch the dk/dv kernel on q pre-scaled by :func:`_prescale_q`
+    (arguments checked by the caller)."""
+    extras = _extras(qs, k, bias, segment_ids)
+    bh, s, d = qs.shape
+    bhk, skv, _ = k.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_attention_bwd_dkv", "prt_flash_bwd_dkv", qs.device,
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, bhk, s, skv, d, int(causal), _KERNEL_DTYPES[qs.dtype],
+            *extras)
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                       scale: float, bias: Optional[torch.Tensor] = None,
                       segment_ids=None, need_dbias: bool = False):
@@ -353,20 +389,8 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = True,
                                        segment_ids=segment_ids,
                                        need_dbias=need_dbias)
     _check_cuda(q, k, v, do, lse, delta)
-    extras = _extras(q, k, bias, segment_ids)
-    bh, s, d = q.shape
-    bhk, skv, _ = k.shape
-    qs = _prescale_q(q, scale)
-    dq = torch.empty_like(qs)
-    dbias = (torch.empty(bh, s, skv, dtype=torch.float32, device=q.device)
-             if need_dbias else None)
-    _launch("flash_attention_bwd_dq", "prt_flash_bwd_dq", q.device,
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), bh, bhk, s, skv, d,
-            scale, int(causal), _KERNEL_DTYPES[q.dtype], *extras)
-    flash_backward_dq.launches += 1
-    return (dq, dbias) if need_dbias else dq
+    return _dq_kernel(_prescale_q(q, scale), k, v, do, lse, delta, causal,
+                      scale, bias, segment_ids, need_dbias)
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -380,19 +404,8 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
                                         causal=causal, scale=scale,
                                         bias=bias, segment_ids=segment_ids)
     _check_cuda(q, k, v, do, lse, delta)
-    extras = _extras(q, k, bias, segment_ids)
-    bh, s, d = q.shape
-    bhk, skv, _ = k.shape
-    qs = _prescale_q(q, scale)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _launch("flash_attention_bwd_dkv", "prt_flash_bwd_dkv", q.device,
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, bhk, s, skv, d, int(causal), _KERNEL_DTYPES[q.dtype],
-            *extras)
-    flash_backward_dkv.launches += 1
-    return dk, dv
+    return _dkv_kernel(_prescale_q(q, scale), k, v, do, lse, delta, causal,
+                       bias, segment_ids)
 
 
 flash_forward.launches = 0
@@ -405,12 +418,22 @@ def flash_backward(q, k, v, o, lse, do, *, causal: bool = True,
                    segment_ids=None, need_dbias: bool = False):
     """``(dq, dk, dv)`` on the folded layout, and ``dbias`` last with
     ``need_dbias``.  ``delta = sum(o * do, -1)`` in float32 is a plain op,
-    as in the JAX package; then the dq kernel and the dk/dv kernel."""
+    as in the JAX package; then the dq kernel and the dk/dv kernel, both
+    on one pre-scaled copy of q (one pass over q a backward)."""
     delta = (o.float() * do.float()).sum(-1)
-    kw = dict(causal=causal, scale=scale, bias=bias, segment_ids=segment_ids)
-    dq = flash_backward_dq(q, k, v, do, lse, delta, need_dbias=need_dbias,
-                           **kw)
-    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+    if _device(q) == "cpu":
+        kw = dict(causal=causal, scale=scale, bias=bias,
+                  segment_ids=segment_ids)
+        dq = flash_backward_dq(q, k, v, do, lse, delta,
+                               need_dbias=need_dbias, **kw)
+        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, **kw)
+    else:
+        _check_cuda(q, k, v, do, lse, delta)
+        qs = _prescale_q(q, scale)
+        dq = _dq_kernel(qs, k, v, do, lse, delta, causal, scale, bias,
+                        segment_ids, need_dbias)
+        dk, dv = _dkv_kernel(qs, k, v, do, lse, delta, causal, bias,
+                             segment_ids)
     if need_dbias:
         dq, dbias = dq
         return dq, dk, dv, dbias

@@ -25,22 +25,31 @@ fallback between the two: a CUDA tensor the kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 __all__ = ["paged_ragged_attention", "paged_ragged_attention_plain",
-           "paged_decode_attention", "DEFAULT_PAGE_SIZE"]
+           "paged_ragged_attention_split_plain", "paged_decode_attention",
+           "q8_plan", "split_plan", "split_ranges", "DEFAULT_PAGE_SIZE"]
 
 # default pool block size; serving picks it up, tests may shrink it
 DEFAULT_PAGE_SIZE = 64
 
-# what the CUDA kernel is instantiated for
+# what the CUDA kernels are instantiated for: head dims over a pool in q's
+# dtype, over an int8 pool, and page sizes
 KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS_Q8 = (64, 80, 96, 128)
 KERNEL_PAGE_SIZES = (32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the int8 kernel's blocks: 16 (row, group member) pairs, 4 warps that take
+# chunks of up to 64 keys of the block's pages in turn
+Q8_TILE_PAIRS = 16
+Q8_WARPS = 4
+Q8_CHUNK = 64
 
 
 def _unpack(q: torch.Tensor, pool: Tuple):
@@ -74,6 +83,36 @@ def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
     return q * torch.tensor(scale, dtype=q.dtype).item()
 
 
+def _scores(q, pool, page_table, lengths, q_lens, scale):
+    """The plain versions' common part: float32 logits ``[b, c, h_kv, g,
+    T]`` over every page of the table (the K scale folded in), the mask of
+    the keys each row sees, the gathered values ``[b, T, h_kv, d]`` and the
+    V scales as accumulation weights (None for a pool in q's dtype)."""
+    k, v, k_s, v_s = _unpack(q, pool)
+    b, c, h_q, d = q.shape
+    _, page, h_kv, _ = k.shape
+    g = h_q // h_kv
+    t_len = page_table.shape[1] * page
+    qf = _prescale(q, scale).float().reshape(b, c, h_kv, g, d)
+    table = page_table.long()
+    kg = k[table].float().reshape(b, t_len, h_kv, d)
+    vg = v[table].float().reshape(b, t_len, h_kv, d)
+    logits = torch.einsum("bckgd,btkd->bckgt", qf, kg)
+    w_v = None
+    if k_s is not None:                        # K scale fold
+        ksg = k_s[table].reshape(b, t_len, h_kv)
+        logits = logits * ksg.permute(0, 2, 1)[:, None, :, None, :]
+        w_v = v_s[table].reshape(b, t_len, h_kv).permute(0, 2, 1)[
+            :, None, :, None, :]
+    t = torch.arange(t_len, device=q.device)
+    qi = torch.arange(c, device=q.device)
+    ln = lengths.long()[:, None, None]
+    ql = q_lens.long()[:, None, None]
+    mask = ((t[None, None, :] <= ln - ql + qi[None, :, None])
+            & (qi[None, :, None] < ql))                         # [b, c, T]
+    return logits, mask[:, :, None, None, :], vg, w_v
+
+
 def paged_ragged_attention_plain(q: torch.Tensor, pool: Tuple,
                                  page_table: torch.Tensor,
                                  lengths: torch.Tensor, q_lens: torch.Tensor,
@@ -82,38 +121,96 @@ def paged_ragged_attention_plain(q: torch.Tensor, pool: Tuple,
     every page of the table, mask, float32 softmax, weighted sum (for an
     int8 pool with the scale folds).  The CPU path, and the yardstick the
     CUDA kernel is held to."""
-    k, v, k_s, v_s = _unpack(q, pool)
-    b, c, h_q, d = q.shape
-    _, page, h_kv, _ = k.shape
-    g = h_q // h_kv
-    n_blocks = page_table.shape[1]
-    t_len = n_blocks * page
-    qf = _prescale(q, scale).float().reshape(b, c, h_kv, g, d)
-    table = page_table.long()
-    kg = k[table].float().reshape(b, t_len, h_kv, d)
-    vg = v[table].float().reshape(b, t_len, h_kv, d)
-    logits = torch.einsum("bckgd,btkd->bckgt", qf, kg)
-    if k_s is not None:                        # K scale fold
-        ksg = k_s[table].reshape(b, t_len, h_kv)
-        logits = logits * ksg.permute(0, 2, 1)[:, None, :, None, :]
-    t = torch.arange(t_len, device=q.device)
-    qi = torch.arange(c, device=q.device)
-    ln = lengths.long()[:, None, None]
-    ql = q_lens.long()[:, None, None]
-    mask = ((t[None, None, :] <= ln - ql + qi[None, :, None])
-            & (qi[None, :, None] < ql))                         # [b, c, T]
-    mask = mask[:, :, None, None, :]
+    logits, mask, vg, w_v = _scores(q, pool, page_table, lengths, q_lens,
+                                    scale)
     logits = logits.masked_fill(~mask, float("-inf"))
     m = logits.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
     l = e.sum(-1, keepdim=True)
-    if v_s is not None:                        # V scale: weights only
-        vsg = v_s[table].reshape(b, t_len, h_kv)
-        e = e * vsg.permute(0, 2, 1)[:, None, :, None, :]
+    if w_v is not None:                        # V scale: weights only
+        e = e * w_v
     o = torch.einsum("bckgt,btkd->bckgd", e, vg)
     o = o / torch.where(l == 0, torch.ones_like(l), l)
-    return o.reshape(b, c, h_q, d).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def split_plan(page: int, n_blocks: int, units_per_slot: int,
+               sm_count: int, lengths: Sequence[int]) -> Tuple[int, int]:
+    """``(n_splits, pages_per_split)`` of the int8 kernel's split-K from
+    the slots' lengths on the host.  A slot's live pages are ``min(ceil(
+    length / page), n_blocks)``; the call's work is their sum times
+    ``units_per_slot`` (kv heads times pair tiles).  A split takes the
+    work's share of one SM, but at least a chunk for every warp, and the
+    longest slot gets as many splits as that makes -- so a long slot does
+    not trail the short ones, and a card full of work is not split at all.
+    Never more splits than the longest slot's pages; a slot's last split is
+    the shorter one (and takes any pages past the plan's)."""
+    pages = [min(-(-int(n) // page), n_blocks) for n in lengths if n > 0]
+    longest = max(pages, default=0)
+    if longest <= 0:
+        return 1, max(1, n_blocks)
+    per_page = max(1, page // Q8_CHUNK)             # chunks a page
+    min_pages = -(-Q8_WARPS // per_page)
+    work = sum(pages) * units_per_slot
+    pps = max(min_pages, -(-work // max(1, sm_count)))
+    n = -(-longest // pps)
+    return n, -(-longest // n)
+
+
+def split_ranges(lengths, q_lens, page: int, n_blocks: int, n_splits: int,
+                 pages_per_split: int) -> list:
+    """The ``[first, end)`` page runs of each slot's splits, as the int8
+    kernel walks them: a live slot (``lengths > 0`` and ``q_lens > 0``)
+    holds ``min(ceil(lengths / page), n_blocks)`` live pages -- the last
+    one its last query row sees -- cut into runs of ``pages_per_split``,
+    at most ``n_splits`` of them (the last takes the rest); a dead slot has
+    none.  Host sequences of ints in, a list per slot out."""
+    out = []
+    for ln, ql in zip(lengths, q_lens):
+        n = min(-(-int(ln) // page), n_blocks) if ln > 0 and ql > 0 else 0
+        starts = list(range(0, n, pages_per_split))[:n_splits]
+        out.append([(p, starts[i + 1] if i + 1 < len(starts) else n)
+                    for i, p in enumerate(starts)])
+    return out
+
+
+def paged_ragged_attention_split_plain(q: torch.Tensor, pool: Tuple,
+                                       page_table: torch.Tensor,
+                                       lengths: torch.Tensor,
+                                       q_lens: torch.Tensor, *, scale: float,
+                                       n_splits: int, pages_per_split: int
+                                       ) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel's split-K: each run of
+    ``pages_per_split`` pages (``n_splits`` runs, the last one to the end
+    of the table) gives float32 ``(m, l, acc)`` per row as
+    :func:`paged_ragged_attention_plain` computes them over its keys alone
+    (a run whose keys a row cannot see gives ``l = 0``), and the runs are
+    merged by the log-sum-exp rule, ``o = sum(acc_s e^(m_s - M)) /
+    sum(l_s e^(m_s - M))`` (0 where the sum of ``l`` is 0).  Equal to the
+    unsplit version up to rounding."""
+    logits, mask, vg, w_v = _scores(q, pool, page_table, lengths, q_lens,
+                                    scale)
+    t = torch.arange(logits.shape[-1], device=q.device)
+    span = pages_per_split * pool[0].shape[1]
+    parts = []
+    for i in range(n_splits):
+        ms = mask & (t >= i * span)
+        if i + 1 < n_splits:
+            ms = ms & (t < (i + 1) * span)
+        lg = logits.masked_fill(~ms, float("-inf"))
+        m = lg.amax(-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.full_like(m, -1e30))
+        e = torch.where(ms, torch.exp(lg - m), torch.zeros_like(lg))
+        l = e.sum(-1, keepdim=True)
+        acc = torch.einsum("bckgt,btkd->bckgd",
+                           e if w_v is None else e * w_v, vg)
+        parts.append((m, l, acc))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_sum = sum(l * torch.exp(m - big) for m, l, _ in parts)
+    acc_sum = sum(acc * torch.exp(m - big) for m, _, acc in parts)
+    o = acc_sum / torch.where(l_sum == 0, torch.ones_like(l_sum), l_sum)
+    return o.reshape(q.shape).to(q.dtype)
 
 
 def _check_cuda(q, k, v, k_s, v_s, page_table, lengths, q_lens) -> None:
@@ -132,8 +229,10 @@ def _check_cuda(q, k, v, k_s, v_s, page_table, lengths, q_lens) -> None:
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     d, page = q.shape[-1], k.shape[1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel head_dim {d} not in {KERNEL_HEAD_DIMS}")
+    dims = KERNEL_HEAD_DIMS if k_s is None else KERNEL_HEAD_DIMS_Q8
+    if d not in dims:
+        raise ValueError(f"kernel head_dim {d} not in {dims}"
+                         + ("" if k_s is None else " (int8 pool)"))
     if page not in KERNEL_PAGE_SIZES:
         raise ValueError(f"kernel page size {page} not in {KERNEL_PAGE_SIZES}")
     b = q.shape[0]
@@ -158,7 +257,7 @@ def _kernel_lib() -> ctypes.CDLL:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn_q8 = lib.prt_paged_ragged_attention_q8
-        fn_q8.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        fn_q8.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
                           + [ctypes.c_void_p])
         fn_q8.restype = ctypes.c_int
         lib.prt_cuda_error_string.argtypes = [ctypes.c_int]
@@ -166,10 +265,78 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+_SM_COUNT = {}
+_COUNTERS = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
+def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The int8 kernel's split counters for launches on ``stream`` of
+    ``dev``: zero, and left zero by every launch that runs to its end, so
+    one buffer serves every call on that stream; another stream gets its
+    own, as launches that share counters must not overlap."""
+    buf = _COUNTERS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _COUNTERS[(dev, stream)] = buf
+    return buf
+
+
+def _tiles(q: torch.Tensor, h_kv: int) -> int:
+    """The int8 kernel's tiles of ``Q8_TILE_PAIRS`` (row, group member)
+    pairs per slot and kv head."""
+    _, chunk, h_q, _ = q.shape
+    return -(-chunk * (h_q // h_kv) // Q8_TILE_PAIRS)
+
+
+def q8_plan(q: torch.Tensor, pool: Tuple, page_table: torch.Tensor,
+            host_lengths: Optional[Sequence[int]] = None) -> Tuple[int, int]:
+    """``(n_splits, pages_per_split)`` with which
+    :func:`paged_ragged_attention` launches the int8 kernel for these
+    CUDA inputs: :func:`split_plan` over the call's pair tiles and the
+    card's SM count; without ``host_lengths`` every slot counts at the
+    table's width."""
+    _, page, h_kv, _ = pool[0].shape
+    n_blocks = page_table.shape[1]
+    lengths = ([n_blocks * page] * q.shape[0] if host_lengths is None
+               else host_lengths)
+    return split_plan(page, n_blocks, h_kv * _tiles(q, h_kv),
+                      _sm_count(q.device), lengths)
+
+
+def _launch_q8(lib, qs, pool, table, lengths, q_lens, out, dims,
+               host_lengths) -> int:
+    """The int8 kernel with its split plan and workspace."""
+    k, k_s, v, v_s = pool
+    b, h_kv, d, stream = dims[0], dims[3], dims[4], dims[-1]
+    units = b * h_kv * _tiles(qs, h_kv)
+    n_splits, pps = q8_plan(qs, pool, table, host_lengths)
+    ws_acc = ws_ml = counters = None
+    if n_splits > 1:
+        ws_acc = torch.empty(units * n_splits * Q8_TILE_PAIRS * d,
+                             dtype=torch.float32, device=qs.device)
+        ws_ml = torch.empty(units * n_splits * Q8_TILE_PAIRS * 2,
+                            dtype=torch.float32, device=qs.device)
+        counters = _counters(qs.device, stream, units)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    return lib.prt_paged_ragged_attention_q8(
+        qs.data_ptr(), k.data_ptr(), k_s.data_ptr(), v.data_ptr(),
+        v_s.data_ptr(), table.data_ptr(), lengths.data_ptr(),
+        q_lens.data_ptr(), out.data_ptr(), ptr(ws_acc), ptr(ws_ml),
+        ptr(counters), *dims[:-1], n_splits, pps, stream)
+
+
 def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
                            page_table: torch.Tensor, lengths: torch.Tensor,
-                           q_lens: torch.Tensor, *,
-                           scale: float) -> torch.Tensor:
+                           q_lens: torch.Tensor, *, scale: float,
+                           host_lengths: Optional[Sequence[int]] = None
+                           ) -> torch.Tensor:
     """Ragged mixed-chunk attention over a paged KV pool.
 
     q: ``[B, chunk, h_q, d]`` right-padded query chunks (``h_q`` a
@@ -181,11 +348,14 @@ def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
     page); lengths: ``[B]`` int32 valid tokens per sequence including the
     chunk's own already-appended rows; q_lens: ``[B]`` int32 valid query
     rows (0 = dead slot; dead slots and pad rows output zeros).
+    host_lengths: optional host copy of ``lengths``, which sizes the int8
+    kernel's split-K (:func:`split_plan`) and never changes the result.
     Returns ``[B, chunk, h_q, d]`` in q's dtype.
 
     On a CUDA device this launches the CUDA kernel and counts the launch
     in ``paged_ragged_attention.launches`` (``.launches_q8`` for an int8
-    pool); on the CPU it runs :func:`paged_ragged_attention_plain`.
+    pool: split-K over pages, :func:`q8_plan`); on the CPU it runs
+    :func:`paged_ragged_attention_plain`.
     """
     k, v, k_s, v_s = _unpack(q, pool)
     if q.device.type == "cpu":
@@ -211,10 +381,8 @@ def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
                 qs.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
                 lengths.data_ptr(), q_lens.data_ptr(), out.data_ptr(), *dims)
         else:
-            err = lib.prt_paged_ragged_attention_q8(
-                qs.data_ptr(), k.data_ptr(), k_s.data_ptr(), v.data_ptr(),
-                v_s.data_ptr(), table.data_ptr(), lengths.data_ptr(),
-                q_lens.data_ptr(), out.data_ptr(), *dims)
+            err = _launch_q8(lib, qs, pool, table, lengths, q_lens, out,
+                             dims, host_lengths)
     if err != 0:
         raise RuntimeError(
             f"paged_ragged_attention kernel launch failed: cudaError {err} "

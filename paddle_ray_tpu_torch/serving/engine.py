@@ -125,7 +125,8 @@ def paged_decode_step(model, toks, positions, lengths, page_table,
 
 
 def paged_mixed_step(model, toks, positions, q_lens, lengths, page_table,
-                     pools: Tuple) -> Tuple[Tuple, torch.Tensor]:
+                     pools: Tuple, host_lengths=None
+                     ) -> Tuple[Tuple, torch.Tensor]:
     """One mixed serving step through the whole model, one ragged
     paged-attention launch per layer.
 
@@ -134,8 +135,9 @@ def paged_mixed_step(model, toks, positions, q_lens, lengths, page_table,
     range); q_lens ``[S]`` int32 valid tokens per slot (0 = dead slot);
     lengths ``[S]`` int32 tokens in cache after this chunk's append;
     page_table ``[S, P]`` int32; pools ``(k, v)`` ``[L, N, page, h, d]``,
-    updated in place.  Returns ``(pools, logits [S, V])`` at each slot's
-    last valid row -- the LM head projects only those rows."""
+    updated in place; host_lengths: optional host copy of ``lengths``
+    (sizes the int8 pool's split-K).  Returns ``(pools, logits [S, V])`` at
+    each slot's last valid row -- the LM head projects only those rows."""
     s, c = toks.shape
     page = pools[0].shape[2]
     toks, positions = toks.long(), positions.long()
@@ -152,7 +154,8 @@ def paged_mixed_step(model, toks, positions, q_lens, lengths, page_table,
             pools = _scatter_rows(pools, layer, page_ids, slots, k, v)
             pool_l = tuple(p[layer] for p in pools)
             o = paged_ragged_attention(q, pool_l, page_table, lengths,
-                                       q_lens, scale=scale)
+                                       q_lens, scale=scale,
+                                       host_lengths=host_lengths)
             return attn.out(o.reshape(s, c, -1)), pools
 
         x, pools = _block_decode(blk, x, pools, None, attn_fn)
@@ -162,7 +165,7 @@ def paged_mixed_step(model, toks, positions, q_lens, lengths, page_table,
 
 
 def _mixed_step(model, toks, positions, q_lens, lengths, table, pools,
-                sampling: Optional[Tuple] = None
+                sampling: Optional[Tuple] = None, host_lengths=None
                 ) -> Tuple[Tuple, torch.Tensor]:
     """The engine's serving step: the mixed forward, then the tokens on
     the device.  ``sampling`` is ``(temps, top_ks, top_ps, seeds)``, all
@@ -170,7 +173,7 @@ def _mixed_step(model, toks, positions, q_lens, lengths, table, pools,
     when every row is greedy (the argmax alone, the same tokens).  Returns
     ``(pools, tokens [S] int32)``."""
     pools, logits = paged_mixed_step(model, toks, positions, q_lens,
-                                     lengths, table, pools)
+                                     lengths, table, pools, host_lengths)
     if sampling is None:
         return pools, torch.argmax(logits, dim=-1).to(torch.int32)
     temps, top_ks, top_ps, seeds = sampling
@@ -758,7 +761,7 @@ class ServingEngine:
         t_start = time.perf_counter()
         with torch.no_grad():
             _, tokens = _mixed_step(self.model, *args, self.pool.arrays,
-                                    sampling)
+                                    sampling, lengths.tolist())
         self.stats.mixed_steps += 1
         return _Dispatched(lanes, tokens, width, warm, t_start, n_dec, n_pre)
 

@@ -8,7 +8,8 @@ forward, its logsumexp and the gradients of a random cotangent; an
 additive bias (full and broadcast, with its gradient), a boolean
 ``attn_mask`` (a padding mask, a fully masked row), q/kv segment ids
 (padding, packing, a fully masked row, with the causal mask) and the
-folded functions' ``dbias``.  Tolerances: float32 outputs ``rtol=1e-4, atol=1e-5`` and float32 gradients
+folded functions' ``dbias``; and that the backward pre-scales q once for
+both of its kernels.  Tolerances: float32 outputs ``rtol=1e-4, atol=1e-5`` and float32 gradients
 ``rtol=1e-3, atol=1e-4`` (summation order differs), bfloat16 ``2e-2``
 (the frameworks round bfloat16 intermediates at different places)."""
 import importlib
@@ -388,3 +389,47 @@ def test_prescale_is_one_rounding(dtype):
     for scale in (80 ** -0.5, 96 ** -0.5, 0.125):
         want = (q.float() * (scale * fa._LOG2E)).to(dtype)
         assert torch.equal(fa._prescale_q(q, scale), want)
+
+
+@pytest.mark.parametrize("need_dbias", [False, True])
+def test_backward_prescales_q_once(monkeypatch, need_dbias):
+    """``flash_backward`` on a card makes one pre-scaled copy of q and
+    hands that same tensor to the dq and the dk/dv kernels (one pass over
+    q a backward); the public ``flash_backward_dq`` / ``flash_backward_dkv``
+    each still pre-scale their own.  The kernels' launches are stood in for
+    here (they run only on the card)."""
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(50, s=64, hkv=2))
+    qf, kf, vf, dof = (fa._fold_heads(x) for x in (q, k, v, do))
+    o, lse = fa.flash_forward_plain(qf, kf, vf, causal=True, scale=0.125)
+    made, seen = [], []
+    real = fa._prescale_q
+
+    def prescale(x, scale):
+        made.append(real(x, scale))
+        return made[-1]
+
+    def dq_kernel(qs, *args):
+        seen.append(qs)
+        dq = torch.zeros_like(qs)
+        return (dq, torch.zeros(1)) if args[-1] else dq
+
+    def dkv_kernel(qs, k, *args):
+        seen.append(qs)
+        return torch.zeros_like(k), torch.zeros_like(k)
+
+    monkeypatch.setattr(fa, "_device", lambda t: "cuda")
+    monkeypatch.setattr(fa, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(fa, "_prescale_q", prescale)
+    monkeypatch.setattr(fa, "_dq_kernel", dq_kernel)
+    monkeypatch.setattr(fa, "_dkv_kernel", dkv_kernel)
+    out = fa.flash_backward(qf, kf, vf, o, lse, dof, causal=True,
+                            scale=0.125, need_dbias=need_dbias)
+    assert len(out) == (4 if need_dbias else 3)
+    assert len(made) == 1 and len(seen) == 2
+    assert seen[0] is made[0] and seen[1] is made[0]
+    torch.testing.assert_close(made[0], qf * (0.125 * fa._LOG2E),
+                               rtol=0, atol=0)
+    delta = (o.float() * dof.float()).sum(-1)
+    fa.flash_backward_dq(qf, kf, vf, dof, lse, delta, scale=0.125)
+    fa.flash_backward_dkv(qf, kf, vf, dof, lse, delta, scale=0.125)
+    assert len(made) == 3

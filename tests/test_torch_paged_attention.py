@@ -5,7 +5,9 @@ interpret mode on the CPU) and ``paddle_ray_tpu_torch``'s wrapper, which
 runs its plain PyTorch version for CPU tensors: GQA ratios 1/2/4, pages
 shuffled across the pool, mixed chunk widths with dead slots, lengths at
 page boundaries, a poisoned null page; and the int8 pool ``(k_q, k_s, v_q,
-v_s)`` against the JAX ``_kernel_q8``.  Tolerances: float32 1e-5
+v_s)`` against the JAX ``_kernel_q8``, at head dims 32, 80 and 96, and its
+split-K plan (the chooser's page runs, the split-then-merge plain version
+against the unsplit one within 1e-6).  Tolerances: float32 1e-5
 (summation order differs); bfloat16 inputs 2e-2 (the two frameworks round
 the bfloat16 intermediates at different places)."""
 import numpy as np
@@ -15,9 +17,11 @@ import torch
 
 from paddle_ray_tpu.ops.paged_attention import (
     paged_decode_attention as jax_decode, paged_ragged_attention as jax_ragged)
+from paddle_ray_tpu_torch.ops import paged_attention as pa
 from paddle_ray_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_ragged_attention,
-    paged_ragged_attention_plain)
+    paged_ragged_attention_plain, paged_ragged_attention_split_plain,
+    split_plan, split_ranges)
 
 D = 32
 SCALE = 1.0 / D ** 0.5
@@ -27,19 +31,19 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
 def _inputs(seed, b, chunk, group, h_kv, pages_per_seq, q_lens, lengths,
-            poison=0.0):
+            poison=0.0, d=D):
     """q, a pool of 1 + b * pages_per_seq pages with the sequences' pages
     scattered in shuffled order, the page table, lengths and q_lens."""
     r = np.random.RandomState(seed)
     n = 1 + b * pages_per_seq
-    k = r.randn(n, PAGE, h_kv, D).astype(np.float32)
-    v = r.randn(n, PAGE, h_kv, D).astype(np.float32)
+    k = r.randn(n, PAGE, h_kv, d).astype(np.float32)
+    v = r.randn(n, PAGE, h_kv, d).astype(np.float32)
     if poison:
         k[0] = poison
         v[0] = poison
     table = (1 + r.permutation(n - 1)).astype(np.int32).reshape(
         b, pages_per_seq)
-    q = r.randn(b, chunk, group * h_kv, D).astype(np.float32)
+    q = r.randn(b, chunk, group * h_kv, d).astype(np.float32)
     return (q, k, v, table, np.asarray(lengths, np.int32),
             np.asarray(q_lens, np.int32))
 
@@ -201,3 +205,165 @@ def test_int8_pool_bf16_queries_match_jax():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                **BF16_TOL)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [80, 96])
+def test_int8_pool_head_dims_80_96_match_jax(d, dtype, group):
+    """gpt3-2.7b's head dim 80 and gpt3-760m's 96 over an int8 pool: the
+    plain version against the Pallas ``_kernel_q8`` (interpret mode), GQA
+    1/2/4, float32 and bfloat16 queries."""
+    q, k, v, table, ln, ql = _inputs(90 + d + group, 6, 8, group, 2, 4,
+                                     MIXED_Q_LENS, MIXED_LENGTHS, d=d)
+    pool = _q8_pool(k, v)
+    pool[0][0] = 127                                # poisoned null page
+    pool[1][0] = 1e4
+    t = torch.from_numpy
+    tdt, jdt, tol = ((torch.float32, jnp.float32, F32_TOL)
+                     if dtype == "float32"
+                     else (torch.bfloat16, jnp.bfloat16, BF16_TOL))
+    got = paged_ragged_attention(t(q).to(tdt), pool, t(table), t(ln), t(ql),
+                                 scale=d ** -0.5)
+    assert got.dtype == tdt
+    want = jax_ragged(jnp.asarray(q, jdt),
+                      tuple(jnp.asarray(p.numpy()) for p in pool),
+                      jnp.asarray(table), jnp.asarray(ln), jnp.asarray(ql),
+                      scale=d ** -0.5)
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                               **tol)
+    for b, n in enumerate(MIXED_Q_LENS):
+        assert (got[b, n:] == 0).all(), f"pad rows of slot {b}"
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_check_cuda_head_dims(d, q8):
+    """The int8-pool kernel takes head dims 64, 80, 96 and 128; the kernel
+    over a pool in q's dtype still only 64 and 128 (checked before any
+    launch)."""
+    q = torch.zeros(2, 1, 4, d, dtype=torch.bfloat16)
+    table = torch.zeros(2, 3, dtype=torch.int32)
+    ln = torch.ones(2, dtype=torch.int32)
+    if q8:
+        k = torch.zeros(7, 64, 4, d, dtype=torch.int8)
+        ks = torch.ones(7, 64, 4)
+        args = (q, k, k, ks, ks, table, ln, ln)
+    else:
+        k = torch.zeros(7, 64, 4, d, dtype=torch.bfloat16)
+        args = (q, k, k, None, None, table, ln, ln)
+    if q8 or d in (64, 128):
+        pa._check_cuda(*args)
+    else:
+        with pytest.raises(ValueError, match=r"\(64, 128\)"):
+            pa._check_cuda(*args)
+
+
+# (lengths, q_lens, page, table width): a long ragged decode with page
+# boundaries and a dead slot, a mixed chunk, pages of 128, short pages
+SPLIT_CASES = [
+    ([1, 63, 64, 65, 700, 2048, 8192, 0], [1] * 7 + [0], 64, 128),
+    ([1664, 1, 64, 65, 0, 2048], [128, 1, 1, 1, 0, 1], 64, 32),
+    ([8192, 129, 128, 1, 5000], [1, 1, 1, 1, 0], 128, 64),
+    ([31, 32, 33], [31, 1, 2], 32, 2),
+    ([0, 0], [0, 0], 64, 4),
+]
+
+
+def _check_runs(runs, lengths, q_lens, page, n_blocks, n_splits):
+    for ln, ql, slot_runs in zip(lengths, q_lens, runs):
+        live = min(-(-ln // page), n_blocks) if ln > 0 and ql > 0 else 0
+        covered = [p for p0, p1 in slot_runs for p in range(p0, p1)]
+        assert covered == list(range(live))         # each page once
+        assert len(slot_runs) <= live and len(slot_runs) <= n_splits
+        assert all(p1 > p0 for p0, p1 in slot_runs)
+
+
+@pytest.mark.parametrize("units_per_slot", [1, 16, 128])
+@pytest.mark.parametrize("sm_count", [8, 132, 100000])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_split_plan_covers_every_live_page_once(case, sm_count,
+                                                units_per_slot):
+    """The chooser's runs cover each live slot's pages exactly once, a
+    dead slot gets none, no run is empty, and there are never more splits
+    than the longest slot's pages; a plan made from stale (shorter)
+    lengths still covers every page (the last run takes the rest)."""
+    lengths, q_lens, page, n_blocks = SPLIT_CASES[case]
+    n_splits, pps = split_plan(page, n_blocks, units_per_slot, sm_count,
+                               lengths)
+    longest = max([min(-(-n // page), n_blocks) for n in lengths], default=0)
+    assert n_splits >= 1 and pps >= 1
+    assert n_splits <= max(1, longest)
+    assert (n_splits - 1) * pps < max(1, longest) <= n_splits * pps
+    _check_runs(split_ranges(lengths, q_lens, page, n_blocks, n_splits, pps),
+                lengths, q_lens, page, n_blocks, n_splits)
+    stale = split_plan(page, n_blocks, units_per_slot, sm_count,
+                       [n // 3 for n in lengths])
+    _check_runs(split_ranges(lengths, q_lens, page, n_blocks, *stale),
+                lengths, q_lens, page, n_blocks, stale[0])
+
+
+@pytest.mark.parametrize("sm_count", [132, 1])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_split_merge_matches_unsplit_and_jax(group, sm_count):
+    """Split-K over pages merged by the log-sum-exp rule, with the splits
+    the chooser gives for these lengths (on 132 SMs two runs of 4 pages,
+    on one SM a single run), equal to the unsplit plain version within
+    1e-6 and to the Pallas ``_kernel_q8``.  Runs past a slot's length, and
+    past an early prefill row's position, carry l = 0."""
+    lengths = [PAGE, PAGE + 1, PAGE - 1, 29, 0, 8 * PAGE]
+    q, k, v, table, ln, ql = _inputs(110 + group, 6, 8, group, 2, 8,
+                                     MIXED_Q_LENS, lengths)
+    pool = _q8_pool(k, v)
+    t = torch.from_numpy
+    args = (t(q), pool, t(table), t(ln), t(ql))
+    n_splits, pps = split_plan(PAGE, 8, 2, sm_count, lengths)
+    assert (n_splits, pps) == ((2, 4) if sm_count == 132 else (1, 8))
+    got = paged_ragged_attention_split_plain(
+        *args, scale=SCALE, n_splits=n_splits, pages_per_split=pps).numpy()
+    unsplit = paged_ragged_attention_plain(*args, scale=SCALE).numpy()
+    np.testing.assert_allclose(got, unsplit, rtol=1e-6, atol=1e-6)
+    want = np.asarray(jax_ragged(
+        jnp.asarray(q), tuple(jnp.asarray(p.numpy()) for p in pool),
+        jnp.asarray(table), jnp.asarray(ln), jnp.asarray(ql), scale=SCALE))
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    for b, n in enumerate(MIXED_Q_LENS):
+        assert (got[b, n:] == 0).all(), f"pad rows of slot {b}"
+    # runs of 1, 2 and 4 pages: most are fully masked for some row
+    for n in (8, 4, 2):
+        by_run = paged_ragged_attention_split_plain(
+            *args, scale=SCALE, n_splits=n, pages_per_split=8 // n).numpy()
+        np.testing.assert_allclose(by_run, unsplit, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("chunk,group,host", [
+    (1, 1, None), (1, 4, [64, 8 * PAGE, 1, 0]), (8, 2, [PAGE, 3, 0, 40]),
+    (24, 1, [8 * PAGE] * 4)])
+def test_q8_plan_is_split_plan_over_the_calls_tiles(chunk, group, host,
+                                                    monkeypatch):
+    """``q8_plan`` -- the plan the int8 launch uses -- is ``split_plan``
+    over the call's tiles of 16 (row, group member) pairs per kv head,
+    every slot at the table's width when no host lengths are given."""
+    h_kv, n_blocks, sms = 2, 8, 132
+    monkeypatch.setitem(pa._SM_COUNT, torch.device("cpu"), sms)
+    q = torch.zeros(4, chunk, h_kv * group, D)
+    pool = (torch.zeros(1 + 4 * n_blocks, PAGE, h_kv, D, dtype=torch.int8),)
+    table = torch.zeros(4, n_blocks, dtype=torch.int32)
+    tiles = -(-chunk * group // pa.Q8_TILE_PAIRS)
+    lengths = [n_blocks * PAGE] * 4 if host is None else host
+    assert pa.q8_plan(q, pool, table, host) == split_plan(
+        PAGE, n_blocks, h_kv * tiles, sms, lengths)
+
+
+def test_split_counters_per_stream(monkeypatch):
+    """Calls on two streams get two counter buffers, each zero, and one
+    stream keeps its buffer (the kernel leaves it zero)."""
+    monkeypatch.setattr(pa, "_COUNTERS", {})
+    dev = torch.device("cpu")
+    a, b = pa._counters(dev, 1, 16), pa._counters(dev, 2, 16)
+    assert a.data_ptr() != b.data_ptr()
+    assert not a.any() and not b.any()
+    assert pa._counters(dev, 1, 16).data_ptr() == a.data_ptr()
+    assert pa._counters(dev, 1, 8192).numel() >= 8192

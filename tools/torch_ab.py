@@ -1,0 +1,162 @@
+"""A/B of the attention kernels of two trees of this repository on one card:
+the tree this script lives in against another (an earlier commit, unpacked
+with ``git archive``), one process per turn in the order other, this, this,
+other.  Each turn builds its tree's kernels and times them with its tree's
+``chip_smoke.time_ms`` (median of 50, L2 flushed) at this tree's cases:
+
+* ``flash``: ``flash_forward``, ``flash_backward_dq`` and
+  ``flash_backward_dkv`` at every bfloat16 shape of ``chip_smoke``'s
+  ``FLASH_CASES`` and ``FLASH_MODES``: GPT-3 350m's training shape (causal,
+  B 8, S 1024, H 16, D 64) first, then head dim 128, gpt3-760m's D 96,
+  gpt3-2.7b's D 80, GQA, a ragged S 320, and the B 8, S 512 masking modes
+  (segment ids, a [B, 1, 1, S] mask-bias, a full bias with dbias, causal
+  segment ids with fully masked rows);
+* ``paged``: ``paged_ragged_attention`` at every case of
+  ``chip_smoke.paged_cases``, over pools in q's dtype and int8 pools, the
+  inputs made by each turn's own ``chip_smoke._attention_case`` (page 0
+  poisoned); a tree whose wrapper takes ``host_lengths`` gets them.
+
+A shape a tree's kernels refuse (a head dim it was not built for) is
+reported as null.  Prints one JSON line per turn and the card's name and
+power limit.  Run from the repository root on a machine with a CUDA card::
+
+    mkdir -p archive_check/parent
+    git archive <commit> | tar -x -C archive_check/parent
+    python3 tools/torch_ab.py flash archive_check/parent
+    python3 tools/torch_ab.py paged archive_check/parent
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# argv: the tree, this tree's cases (JSON), the rows the causal-segments
+# mode leaves no visible key (JSON)
+FLASH_TURN = r'''
+import importlib, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+fa = importlib.import_module("paddle_ray_tpu_torch.ops.flash_attention")
+t = chip_smoke.time_ms
+out = {}
+for name, b, s, h, hkv, d, causal, mode in json.loads(sys.argv[2]):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    q, do = (torch.randn(b * h, s, d, generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b * hkv, s, d, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    kw = dict(causal=causal, scale=d ** -0.5)
+    lengths = torch.linspace(288, s, b, device="cuda").long()
+    valid = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    seg = valid.to(torch.int32).contiguous()
+    if mode == "segments":
+        kw["segment_ids"] = (seg, seg)
+    elif mode == "mask_bias":
+        kw["bias"] = torch.where(valid, 0.0, -1e30)[:, None, None, :].float(
+        ).expand(b, h, s, s)
+    elif mode == "bias_dbias":
+        kw["bias"] = torch.randn(b, h, s, s, generator=g, device="cuda")
+    elif mode == "causal_segments":
+        lonely = seg.clone()
+        lonely[0, json.loads(sys.argv[3])] = 2
+        kw["segment_ids"] = (lonely, seg)
+    need = mode == "bias_dbias"
+    try:
+        o, lse = fa.flash_forward(q, k, v, **kw)
+    except ValueError:  # a head dim this tree's kernels do not take
+        out[name] = None
+        continue
+    delta = (o.float() * do.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta)
+    out[name] = {
+        "fwd": t(lambda: fa.flash_forward(q, k, v, **kw), iters=50),
+        "dq": t(lambda: fa.flash_backward_dq(*bwd, need_dbias=need, **kw),
+                iters=50),
+        "dkv": t(lambda: fa.flash_backward_dkv(*bwd, **kw), iters=50)}
+print(json.dumps(out))
+'''
+
+# argv: the tree, this tree's cases (JSON: name and keyword arguments of
+# _attention_case, the dtype by name)
+PAGED_TURN = r'''
+import importlib, inspect, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+pa = importlib.import_module("paddle_ray_tpu_torch.ops.paged_attention")
+takes_host = "host_lengths" in inspect.signature(
+    pa.paged_ragged_attention).parameters
+out = {}
+for name, kw in json.loads(sys.argv[2]):
+    c = chip_smoke._attention_case(
+        name, **dict(kw, dtype=getattr(torch, kw["dtype"])))
+    extra = dict(host_lengths=kw["lengths"]) if takes_host else {}
+    fn = lambda: pa.paged_ragged_attention(
+        c["q"], c["pool"], c["table"], c["lengths"], c["q_lens"],
+        scale=1.0 / c["q"].shape[-1] ** 0.5, **extra)
+    try:
+        fn()
+    except ValueError:  # a head dim this tree's kernels do not take
+        out[name] = None
+        continue
+    out[name] = chip_smoke.time_ms(fn, iters=50)
+    del c
+print(json.dumps(out))
+'''
+
+
+def _flash_args() -> list:
+    """This tree's bf16 flash cases and modes, and the rows the
+    causal-segments mode leaves no visible key."""
+    import torch
+    import chip_smoke
+    cases = [[name, b, s, h, hkv, d, causal, None]
+             for name, b, s, h, hkv, d, dtype, causal in chip_smoke.FLASH_CASES
+             if dtype == torch.bfloat16]
+    b, s, h = chip_smoke.ENC_BATCH, chip_smoke.ENC_SEQ, chip_smoke.ENC_HEADS
+    for mode in chip_smoke.FLASH_MODES:
+        cases.append([mode, b, s, h, h, 64, mode.startswith("causal"),
+                      mode[:-len("_bf16")]])
+    return [json.dumps(cases), json.dumps(list(chip_smoke.LONELY_ROWS))]
+
+
+def _paged_args() -> list:
+    """This tree's paged cases, the dtype by name."""
+    import chip_smoke
+    return [json.dumps([[name, dict(kw, dtype=str(kw["dtype"]).split(".")[-1])]
+                        for name, kw in chip_smoke.paged_cases()])]
+
+
+KINDS = {"flash": (FLASH_TURN, _flash_args), "paged": (PAGED_TURN, _paged_args)}
+
+
+def main() -> None:
+    if len(sys.argv) != 3 or sys.argv[1] not in KINDS:
+        raise SystemExit("usage: python3 tools/torch_ab.py {flash,paged} "
+                         "OTHER_TREE")
+    turn, make_args = KINDS[sys.argv[1]]
+    trees = {"other": os.path.abspath(sys.argv[2]), "this": ROOT}
+    sys.path.insert(0, ROOT)
+    args = make_args()
+    for name in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, "-c", turn, trees[name], *args],
+                              cwd=trees[name], capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode:
+            raise SystemExit(f"{name} turn failed:\n{proc.stdout}"
+                             f"{proc.stderr}")
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"kind": sys.argv[1], "tree": name, **row}),
+              flush=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()
