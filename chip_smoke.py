@@ -11,21 +11,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 2. build   -- builds every kernel source under
    ``paddle_ray_tpu_torch/ops/csrc/`` with ``nvcc`` (one process per
    source, all started together); then ``sass``: the flash kernels' and
-   the int8 paged kernel's ``HGMMA`` / ``HMMA`` counts in the libraries'
-   SASS (``cuobjdump``) beside ptxas's registers and spills, failing if a
-   bf16 flash tensor-core kernel (forward, dq, dk/dv; dq at all four head
-   dims) holds no ``HGMMA``, a float32 flash kernel holds one, or a bf16
-   int8-pool paged kernel holds no ``HMMA``.
-3. kernel  -- the paged-attention kernels against their plain PyTorch
-   version at the shapes the serving path gives them (float32
+   the paged kernel's ``HGMMA`` / ``HMMA`` counts in the libraries' SASS
+   (``cuobjdump``) beside ptxas's registers and spills, failing if a bf16
+   flash tensor-core kernel (forward, dq, dk/dv; dq at all four head dims)
+   holds no ``HGMMA``, a float32 flash kernel holds one, or a paged kernel
+   with bf16 q (over an int8 or a bf16 pool) holds no ``HMMA``.
+3. kernel  -- the paged-attention kernel against its plain PyTorch
+   version at the shapes the serving path gives it (float32
    ``atol=1e-4``, bfloat16 ``atol=2e-2`` and each row's ``max|err| /
    max|ref|`` ``PAGED_BF16_REL_TOL``, null page poisoned, pad rows 0), over
-   pools in the model's dtype (head_dim 64/128) and int8 ones
-   (page 32/64/128, head_dim 64/80/96/128, GQA 1/2/4, a long ragged
-   decode of 1-8192 tokens over many splits, 128-wide mixed chunks),
-   the lengths handed over on the host as the engine does; each timed
-   with CUDA events beside its bound and one PyTorch library call on the
-   same inputs, with the int8 kernel's split plan.
+   pools in the model's dtype and int8 ones alike (page 32/64/128,
+   head_dim 64/80/96/128, GQA 1/2/4, a long ragged decode of 1-8192 tokens
+   over many splits with a dead slot, 128-wide mixed chunks), the lengths
+   handed over on the host as the engine does; each timed with CUDA
+   events beside its bound and one PyTorch library call on the same
+   inputs, with the split plan the launch used.
 4. flash_kernel -- the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions on the same inputs: the training shape
    (B 8, S 1024, H 16, D 64, bf16, causal), float32 causal and full, GQA,
@@ -44,7 +44,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    same mask.
 5. decode_kernel -- the decode kernels against their plain versions:
    fused decode attention at B 8, h 16, d 64 over the 512-row cache of
-   ``generate()`` (pos 0, 127, 255, 383; bfloat16, float32 and int8), and
+   ``generate()`` (pos 0, 127, 255, 383; bfloat16, float32 and int8), at
+   gpt3-760m's h 16, d 96 and gpt3-2.7b's h 32, d 80 (pos 255; bfloat16
+   and int8), and
    ``int8_stream_matmul`` at gpt3-350m's decode shapes (8 rows x 1024->3072,
    1024->1024, 1024->4096, 4096->1024, the 1024->50304 head), float32 and
    N = 97; each timed beside its bound and one library call.
@@ -67,11 +69,22 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    ``quantize_for_decode`` + ``kv_cache_dtype="int8"``; one warm-up and two
    timed calls each, with launch counts per call, then a short call of each
    under ``torch.profiler``.
-10. generate_check -- a 4-layer float32 model of GPT-3 350m's width: the
-   kernels' greedy tokens against ``fused_attention=False`` (dense and
-   int8 KV) and the paged layout against the dense one, equal up to a step
-   where the reference's top-2 logit gap is below 1e-3, and the threefry
-   bits of 4,096 (seed, position) keys equal on the card and the CPU.
+10. generate_check -- 4-layer float32 models of GPT-3 350m's and
+   gpt3-760m's widths (head dims 64 and 96): the kernels' greedy tokens
+   against ``fused_attention=False`` (dense and int8 KV) and the paged
+   layout against the dense one, equal up to a step where the reference's
+   top-2 logit gap is below 1e-3, every kernel of the chain launched; and
+   the threefry bits of 4,096 (seed, position) keys equal on the card and
+   the CPU.
+10b. serve_760m -- (after ``generate_check``) ``serve``'s workload on
+   gpt3-760m at full width (24 layers, hidden 1536, 16 heads of 96; bf16,
+   random weights from the seed) over a bf16 pool, page 64, greedy; the
+   same fields as ``serve``, the paged kernel launched once per layer a
+   step.
+10c. check_760m -- a 4-layer float32 model of gpt3-760m's width: two
+   requests served greedily against greedy ``generate()`` on each prompt,
+   equal up to a step where the reference's top-2 logit gap is below
+   1e-3, both kernels launched at head dim 96.
 11. train  -- the training main path of ``bench.py``'s headline: GPT-3
    350m (bf16 parameters, flash attention, remat off, seq 1024, batch 8
    of ``(ids, ids)``), ``AdamW(1e-4)`` through ``build_train_step``, 2
@@ -109,13 +122,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    kernels against their plain versions (run after ``gn_kernel``) at the
    fused encoder's shape ``[8 x 512, 1024]``: bfloat16 and float32, p 0.1
    and 0, training on and off, an odd row count, with and without the h
-   output's cotangent; the keep mask bit-identical to ``keep_mask_plain``
-   (h of x = 1, residual 0 is the scaled mask).  y and h within ``atol``
+   output's cotangent; widths 768, 8192 and 1020 / 1022 (not a whole
+   number of 16-byte vectors); the keep mask bit-identical to
+   ``keep_mask_plain`` (h of x = 1, residual 0 is the scaled mask), the
+   backward the same bits in two calls.  y and h within ``atol``
    1e-4 (float32) / 2e-2 plus one bfloat16 rounding step (``rtol`` 2**-7),
    statistics within 1e-4, gradients within ``max|err| / max|ref|`` 1e-4 /
-   2e-2.  The encoder's case timed beside the bound, the plain version and
-   ``torch.nn.functional.layer_norm`` on h alone (and its autograd
-   backward).
+   2e-2.  The encoder's case and the new widths timed beside the bound,
+   the plain version and ``torch.nn.functional.layer_norm`` on h alone
+   (and its autograd backward).
 17. bert_train -- ``bench.py:bench_bert("bert-large", 512, 8, 10, {},
    zero_stage=0)``: BERT-large (bf16, flash), batch 8 of 512 random ids
    with ``mlm_labels = ids`` and NSP labels 0, ``AdamW(1e-4)`` through
@@ -358,7 +373,10 @@ def phase_build() -> None:
 
 _KERNEL_NAME = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?_kernel)"
                           r"I(f|13__nv_bfloat16)?Li(\d+)ELb([01])E")
-_PAGED_Q8_NAME = re.compile(r"(paged_q8_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+# paged_kernel<T, KV, D, PAGE>: KV int8 (``a``), float, or T again (a
+# substitution, ``S..._``)
+_PAGED_NAME = re.compile(r"(paged_kernel)I(f|13__nv_bfloat16)(a|f|S\d*_)"
+                         r"Li(\d+)ELi(\d+)E")
 
 
 def _flash_short(mangled):
@@ -370,11 +388,13 @@ def _flash_short(mangled):
 
 
 def _paged_short(mangled):
-    m = _PAGED_Q8_NAME.search(mangled)
+    m = _PAGED_NAME.search(mangled)
     if m is None:
         return None
-    base, t, d, page = m.groups()
-    return f"{base}<{'float' if t == 'f' else 'bf16'},{d},{page}>"
+    base, t, kv, d, page = m.groups()
+    t = "float" if t == "f" else "bf16"
+    kv = {"a": "int8", "f": "float"}.get(kv, t)
+    return f"{base}<{t},{kv},{d},{page}>"
 
 
 def _sass_counts(library, log, short, out_name) -> dict:
@@ -423,15 +443,16 @@ def _sass_counts(library, log, short, out_name) -> dict:
 
 
 def _sass_check(logs: dict) -> None:
-    """The flash kernels' and the int8 paged kernel's SASS.  Fails if a
-    bf16 flash tensor-core kernel (the forward, dq and dk/dv) holds no
+    """The flash kernels' and the paged kernel's SASS.  Fails if a bf16
+    flash tensor-core kernel (the forward, dq and dk/dv) holds no
     ``HGMMA`` or a float32 flash kernel holds one, if any of the four head
-    dims lacks a bf16 dq tensor-core kernel, or if a bf16 paged int8 kernel
-    holds no ``HMMA`` (its prefill tiles' ``mma.sync``)."""
+    dims lacks a bf16 dq tensor-core kernel, or if a paged kernel with
+    bf16 q (over an int8 or a bf16 pool) holds no ``HMMA`` (its prefill
+    tiles' ``mma.sync``)."""
     kernels = _sass_counts("flash_attention", logs["flash_attention"],
                            _flash_short, "sass_flash_mma.txt")
     paged = _sass_counts("paged_attention", logs["paged_attention"],
-                         _paged_short, "sass_paged_q8_mma.txt")
+                         _paged_short, "sass_paged_mma.txt")
     if kernels is None or paged is None:
         return
     tc = [n for n in kernels if "_tc_kernel" in n]
@@ -446,9 +467,11 @@ def _sass_check(logs: dict) -> None:
             f"head dims {sorted(dq_dims)}")
     no_hmma = [n for n, k in paged.items()
                if "<bf16," in n and not k.get("hmma")]
-    if no_hmma or not paged:
-        raise AssertionError(f"paged int8 kernels without HMMA in their "
-                             f"SASS: {no_hmma or 'none found'}")
+    kinds = {n.split(",")[1] for n in paged if "<bf16," in n}
+    if no_hmma or kinds != {"int8", "bf16"}:
+        raise AssertionError(f"paged kernels with bf16 q without HMMA in "
+                             f"their SASS: {no_hmma}; pools with bf16 q "
+                             f"found: {sorted(kinds)}")
 
 
 # ---------------------------------------------------------------------------
@@ -556,7 +579,19 @@ def paged_cases() -> list:
     long_decode = dict(width=1, q_lens=[1] * 7 + [0],
                        lengths=[1, 64, 65, 777, 2048, 4096, 8192, 0])
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = []
+    # the same over a pool in q's dtype, and gpt3-2.7b's / gpt3-760m's head
+    # dims there
+    cases = [
+        ("long_decode_bf16", dict(dtype=bf16, blocks=128, **long_decode)),
+        ("decode_gqa4_page32_bf16", dict(dtype=bf16, page=32, h_kv=4,
+                                         blocks=64, **decode)),
+        ("mixed_gqa4_page128_bf16", dict(dtype=bf16, page=128, h_kv=4,
+                                         blocks=16, **mixed)),
+        ("decode_d80_bf16", dict(dtype=bf16, d=80, h_q=32, h_kv=32,
+                                 **decode)),
+        ("mixed_d96_bf16", dict(dtype=bf16, d=96, **mixed)),
+        ("decode_d96_f32", dict(dtype=f32, d=96, **decode)),
+    ]
     for dtype in (f32, bf16):
         tag = "f32" if dtype == f32 else "bf16"
         cases += [
@@ -591,16 +626,17 @@ def paged_cases() -> list:
         ("decode_q8_d96_f32", dict(dtype=f32, q8=True, d=96, **decode)),
         ("mixed_gqa_q8_d96_bf16", dict(dtype=bf16, q8=True, d=96, h_kv=8,
                                        **mixed)),
-        ("decode_2048_bf16", dict(dtype=bf16, **decode_2048)),
-        ("decode_2048_q8_bf16", dict(dtype=bf16, q8=True, **decode_2048)),
     ]
-    return cases
+    # the serving path's headline shapes first
+    return [("decode_2048_bf16", dict(dtype=bf16, **decode_2048)),
+            ("decode_2048_q8_bf16", dict(dtype=bf16, q8=True, **decode_2048)),
+            *cases]
 
 
 def phase_kernel() -> dict:
     import torch.nn.functional as F
     from paddle_ray_tpu_torch.ops.paged_attention import (
-        paged_ragged_attention, paged_ragged_attention_plain, q8_plan)
+        kernel_plan, paged_ragged_attention, paged_ragged_attention_plain)
     bf16 = torch.bfloat16
     cases = [_attention_case(name, **kw) for name, kw in paged_cases()]
     results = {}
@@ -639,9 +675,8 @@ def phase_kernel() -> dict:
                 qs, kd, vd, attn_mask=mask, scale=scale)),
             **_attention_bound(c),
         }
-        if q8:
-            r["splits"], r["pages_per_split"] = q8_plan(
-                c["q"], c["pool"], c["table"], host)
+        r["splits"], r["pages_per_split"] = kernel_plan(
+            c["q"], c["pool"], c["table"], host)
         results[c["name"]] = r
         pool = c["pool"]
         emit("kernel", kernel="paged_ragged_attention", case=c["name"],
@@ -965,40 +1000,60 @@ def _matmul_bound(b, k, n, dtype, bias) -> dict:
             "bytes": n_bytes, "ops": ops}
 
 
+# (name, cache kind, q dtype, heads, head dim, positions): gpt3-350m's
+# decode at batch 8, then gpt3-760m's (16 heads of 96) and gpt3-2.7b's (32
+# of 80)
+DEC_ATTN_CASES = (
+    ("bf16", "bf16", "bfloat16", 16, 64, DEC_POSITIONS),
+    ("f32", "f32", "float32", 16, 64, DEC_POSITIONS),
+    ("q8", "q8", "bfloat16", 16, 64, DEC_POSITIONS),
+    *((f"{kind}_d{d}", kind, "bfloat16", h, d, (255,))
+      for h, d in ((16, 96), (32, 80)) for kind in ("bf16", "q8")))
+
+
+def _decode_attention_inputs(kind, dtype, h, d):
+    """q ``[8, h, 1, d]`` and a ``DEC_CACHE_T``-row cache from the seed:
+    ``(k, v)`` in q's dtype, or int8 ``(k_q, k_s, v_q, v_s)``."""
+    from paddle_ray_tpu_torch.models.generation import _kv_quant
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    b = GEN_BATCH
+    q = torch.randn(b, h, 1, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, h, DEC_CACHE_T, d, generator=g, device="cuda")
+    v = torch.randn(b, h, DEC_CACHE_T, d, generator=g, device="cuda")
+    if kind == "q8":
+        (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
+        return q, (kq, ks, vq, vs)
+    return q, (k.to(dtype), v.to(dtype))
+
+
 def _decode_attention_cases():
     import torch.nn.functional as F
-    from paddle_ray_tpu_torch.models.generation import _kv_quant
     from paddle_ray_tpu_torch.ops.decode_attention import (
         fused_decode_attention, fused_decode_attention_plain,
         fused_decode_attention_q8_plain)
-    b, h, d = GEN_BATCH, 16, 64
-    scale = 1.0 / d ** 0.5
+    b = GEN_BATCH
     results = {}
-    for kind, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
-                        ("q8", torch.bfloat16)):
-        g = torch.Generator(device="cuda")
-        g.manual_seed(SEED)
-        q = torch.randn(b, h, 1, d, generator=g, device="cuda").to(dtype)
-        k = torch.randn(b, h, DEC_CACHE_T, d, generator=g, device="cuda")
-        v = torch.randn(b, h, DEC_CACHE_T, d, generator=g, device="cuda")
+    for name, kind, dtype, h, d, positions in DEC_ATTN_CASES:
+        dtype = getattr(torch, dtype)
+        scale = 1.0 / d ** 0.5
+        q, cache = _decode_attention_inputs(kind, dtype, h, d)
         if kind == "q8":
-            (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
-            cache = (kq, ks, vq, vs)
+            kq, ks, vq, vs = cache
             plain = fused_decode_attention_q8_plain
             kd = (kq.float() * ks).to(dtype)
             vd = (vq.float() * vs).to(dtype)
         else:
-            cache = (k.to(dtype), v.to(dtype))
             plain = fused_decode_attention_plain
             kd, vd = cache
-        for pos in DEC_POSITIONS:
+        for pos in positions:
             got = fused_decode_attention(q, cache, pos, scale=scale)
             torch.cuda.synchronize()
             want = plain(q, cache, pos, scale=scale)
             err = float((got.float() - want.float()).abs().max())
             tol = TOL[dtype]
             if not (err <= tol and torch.isfinite(got).all()):
-                raise AssertionError(f"decode attention {kind} pos {pos}: "
+                raise AssertionError(f"decode attention {name} pos {pos}: "
                                      f"max_abs_err {err} > {tol}")
             ks_, vs_ = (kd[:, :, :pos + 1].contiguous(),
                         vd[:, :, :pos + 1].contiguous())
@@ -1011,9 +1066,9 @@ def _decode_attention_cases():
                      q, ks_, vs_, scale=scale)),
                  **_decode_attention_bound(b, h, pos + 1, d, dtype,
                                            kind == "q8")}
-            results[f"{kind}_pos{pos}"] = r
+            results[f"{name}_pos{pos}"] = r
             emit("decode_kernel", kernel="fused_decode_attention",
-                 case=f"{kind}_pos{pos}", shape=[b, h, DEC_CACHE_T, d],
+                 case=f"{name}_pos{pos}", shape=[b, h, DEC_CACHE_T, d],
                  q_dtype=str(dtype), cache_dtype=str(cache[0].dtype),
                  library="scaled_dot_product_attention over [B, h, pos+1, d]"
                  + (" (dequantised cache)" if kind == "q8" else ""), **r)
@@ -1323,7 +1378,9 @@ def _dal_case(name, rows, h, dtype, p, training, dh2, timed) -> dict:
     ref = dal_forward_plain(x, res, w, b, DAL_SEED, epsilon=DAL_EPS, **kw)
     bwd = (ref[1], ref[2], ref[3], w, dy, d2, DAL_SEED)
     got = dal_backward(*bwd, **kw)
+    again = dal_backward(*bwd, **kw)
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
     want = dal_backward_plain(*bwd, **kw)
     tol = TOL[dtype]
     # bfloat16: atol plus one rounding step of the output type
@@ -1346,14 +1403,15 @@ def _dal_case(name, rows, h, dtype, p, training, dh2, timed) -> dict:
         keep = keep_mask_plain((rows, h), p, DAL_SEED, device="cuda")
         mask_same = bool(torch.equal(hm != 0, keep != 0))
     finite = all(bool(torch.isfinite(a).all()) for a in (*out, *got))
-    if not (finite and mask_same is not False
+    if not (finite and mask_same is not False and same_bits
             and all(torch.allclose(a.float(), e.float(), rtol=rtol, atol=tol)
                     for a, e in zip(out[:2], ref[:2]))
             and stat_err <= 1e-4 and max(bwd_rel.values()) <= tol):
         raise AssertionError(
             f"dal {name}: kernel vs plain: forward max_abs_err {fwd_err}, "
             f"statistics {stat_err}, gradients rel_err {bwd_rel} (tolerance "
-            f"{tol}), mask bit-identical {mask_same}")
+            f"{tol}), mask bit-identical {mask_same}, backward the same "
+            f"bits in two calls {same_bits}")
     out_r = {"fwd": {"max_abs_err": fwd_err, "stat_err": stat_err,
                      **_dal_bound("fwd", rows, h, dtype, dh2)},
              "bwd": {"max_abs_err": bwd_abs, "rel_err": bwd_rel,
@@ -1365,6 +1423,11 @@ def _dal_case(name, rows, h, dtype, p, training, dh2, timed) -> dict:
         lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
             F.layer_norm(leaves[0], (h,), leaves[1], leaves[2], DAL_EPS),
             leaves, dy))
+        # its backward alone, on a graph built once (the difference above,
+        # which earlier runs reported, subtracts one timing floor too many)
+        y_lib = F.layer_norm(leaves[0], (h,), leaves[1], leaves[2], DAL_EPS)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            y_lib, leaves, dy, retain_graph=True))
         out_r["fwd"].update(
             ms=time_ms(lambda: dal_forward(x, res, w, b, DAL_SEED,
                                            epsilon=DAL_EPS, **kw)),
@@ -1375,34 +1438,52 @@ def _dal_case(name, rows, h, dtype, p, training, dh2, timed) -> dict:
             ms=time_ms(lambda: dal_backward(*bwd, **kw)),
             plain_ms=time_ms(lambda: dal_backward_plain(*bwd, **kw),
                              iters=5),
-            library_ms=lib_fwd_bwd - lib_fwd)
+            library_ms=lib_bwd,
+            library_fwd_bwd_minus_fwd_ms=lib_fwd_bwd - lib_fwd)
     emit("dal_kernel", case=name, shape=[rows, h], dtype=str(dtype), p=p,
          training=training, dh2=dh2, tol=tol, rtol=rtol,
-         mask_bit_identical=mask_same, timed=timed,
+         mask_bit_identical=mask_same, bwd_same_bits_twice=same_bits,
+         timed=timed,
          library="torch.nn.functional.layer_norm on h: LayerNorm alone, "
                  "without the dropout or the residual add (bwd: its "
-                 "autograd backward)", **out_r)
+                 "autograd backward on a graph built once)", **out_r)
     return out_r
 
 
+# (name, rows, H, dtype, p, training, h's cotangent, timed): the fused
+# encoder's shape [8 x 512, 1024] first (bf16, p 0.1, training, no
+# cotangent of h: its main path), the other modes, float32, odd row
+# counts; then the widths BERT-base (768) and 8192 (the kernels' widest)
+# and rows not a whole number of 16-byte vectors (element loads)
+DAL_CASES = (
+    ("encoder_bf16_p0.1", 4096, ENC_D, "bfloat16", ENC_RATE, True, False,
+     True),
+    ("bf16_p0.1_dh2", 4096, ENC_D, "bfloat16", ENC_RATE, True, True, False),
+    ("bf16_p0_dh2", 4096, ENC_D, "bfloat16", 0.0, True, True, False),
+    ("bf16_eval", 4096, ENC_D, "bfloat16", ENC_RATE, False, False, False),
+    ("f32_p0.1_dh2", 4096, ENC_D, "float32", ENC_RATE, True, True, True),
+    ("f32_eval", 4096, ENC_D, "float32", ENC_RATE, False, True, False),
+    ("odd_rows_bf16_p0.1", 4093, ENC_D, "bfloat16", ENC_RATE, True, True,
+     False),
+    ("odd_rows_f32_p0.1", 7, ENC_D, "float32", ENC_RATE, True, True, False),
+    ("h768_bf16_p0.1", 4096, 768, "bfloat16", ENC_RATE, True, False, True),
+    ("h8192_bf16_p0.1", 4096, 8192, "bfloat16", ENC_RATE, True, False,
+     True),
+    ("h8192_f32_p0.1_dh2", 515, 8192, "float32", ENC_RATE, True, True,
+     True),
+    ("h1020_bf16_p0.1_dh2", 4096, 1020, "bfloat16", ENC_RATE, True, True,
+     True),
+    ("h1022_f32_p0.1", 45, 1022, "float32", ENC_RATE, True, False, True),
+)
+
+
 def phase_dal_kernel() -> dict:
-    """The fused encoder's shape ``[8 x 512, 1024]`` (bf16, p 0.1,
-    training, no cotangent of h: its main path, timed), the other modes,
-    float32 and an odd row count."""
-    rows, h = ENC_BATCH * ENC_SEQ, ENC_D
-    bf16, f32 = torch.bfloat16, torch.float32
+    """Every case of ``DAL_CASES``; the encoder's is the main path's."""
+    assert ENC_BATCH * ENC_SEQ == DAL_CASES[0][1]
     results = {}
-    for name, n, dtype, p, training, dh2, timed in (
-            ("encoder_bf16_p0.1", rows, bf16, ENC_RATE, True, False, True),
-            ("bf16_p0.1_dh2", rows, bf16, ENC_RATE, True, True, False),
-            ("bf16_p0_dh2", rows, bf16, 0.0, True, True, False),
-            ("bf16_eval", rows, bf16, ENC_RATE, False, False, False),
-            ("f32_p0.1_dh2", rows, f32, ENC_RATE, True, True, True),
-            ("f32_eval", rows, f32, ENC_RATE, False, True, False),
-            ("odd_rows_bf16_p0.1", rows - 3, bf16, ENC_RATE, True, True,
-             False),
-            ("odd_rows_f32_p0.1", 7, f32, ENC_RATE, True, True, False)):
-        results[name] = _dal_case(name, n, h, dtype, p, training, dh2, timed)
+    for name, n, h, dtype, p, training, dh2, timed in DAL_CASES:
+        results[name] = _dal_case(name, n, h, getattr(torch, dtype), p,
+                                  training, dh2, timed)
     return results
 
 
@@ -1419,7 +1500,10 @@ def bench_serving_workload(span: int):
         + [(span // 2 + span // 4, span // 8)])
 
 
-def phase_serve(model) -> dict:
+def phase_serve(model, phase="serve", name=MODEL) -> dict:
+    """``bench_serving_workload``'s requests, greedy, over a pool in the
+    model's dtype (page 64, ``max_batch`` 8): ``serve`` is gpt3-350m,
+    ``serve_760m`` gpt3-760m (head dim 96)."""
     from paddle_ray_tpu_torch.ops.paged_attention import (
         paged_ragged_attention)
     from paddle_ray_tpu_torch.serving import ServingEngine
@@ -1451,7 +1535,8 @@ def phase_serve(model) -> dict:
         "p99_token_ms", "mixed_steps", "decode_tokens", "prefill_tokens",
         "prefix_hit_tokens", "timed_decode_tokens", "timed_prefill_tokens",
         "decode_s", "prefill_s")}
-    emit("serve", model=MODEL, dtype=str(model.dtype), requests=len(rids),
+    emit(phase, model=name, dtype=str(model.dtype),
+         head_dim=cfg.hidden_size // cfg.num_heads, requests=len(rids),
          workload=workload, launches=launches, wall_s=round(wall_s, 3),
          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3),
          pool=eng.pool_stats(), **fields)
@@ -1498,6 +1583,56 @@ def phase_check(model) -> None:
                        "equal_tokens": upto, "near_tie_at": tie_at})
     emit("check", dtype="float32", requests=report)
     del eng, m32
+
+
+def _check_model(name):
+    """A 4-layer float32 model of ``name``'s width, random from a seed."""
+    from paddle_ray_tpu_torch.models import build_gpt
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 2)
+    return build_gpt(name, device="cuda", dtype=torch.float32, num_layers=4,
+                     max_seq_len=512, generator=g)
+
+
+def phase_check_760m() -> None:
+    """A 4-layer float32 model of gpt3-760m's width (head dim 96): two
+    requests served greedily over a float32 pool against greedy
+    ``generate()`` on each prompt (the dense decode kernel), equal up to a
+    step where the reference's top-2 logit gap is below ``CHECK_TIE``;
+    both paths must have launched their kernels at head dim 96."""
+    from paddle_ray_tpu_torch.models import generate
+    from paddle_ray_tpu_torch.ops.decode_attention import (
+        fused_decode_attention)
+    from paddle_ray_tpu_torch.ops.paged_attention import (
+        paged_ragged_attention)
+    from paddle_ray_tpu_torch.serving import ServingEngine
+    model = _check_model(M760)
+    r = np.random.RandomState(SEED + 3)
+    prompts = [r.randint(0, model.cfg.vocab_size, (n,)) for n in (40, 100)]
+    new = 16
+    paged_ragged_attention.launches = fused_decode_attention.launches = 0
+    eng = ServingEngine(model, page_size=PAGE, max_batch=MAX_BATCH,
+                        device=model.device)
+    rids = [eng.submit(p, new) for p in prompts]
+    out = eng.run()
+    report = []
+    for rid, p in zip(rids, prompts):
+        ids = torch.tensor(p, dtype=torch.long, device="cuda")[None]
+        want = generate(model, ids, new)
+        got = torch.cat([ids, torch.as_tensor(
+            np.asarray(out[rid]), dtype=torch.long, device="cuda")[None]], 1)
+        report.append({"prompt_tokens": len(p), **_same_tokens(
+            f"serve vs generate (gpt3-760m width, prompt {len(p)})", model,
+            got, want, len(p))})
+    launches = {"paged_ragged_attention": paged_ragged_attention.launches,
+                "fused_decode_attention": fused_decode_attention.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"check_760m: kernels not launched {launches}")
+    emit("check_760m", model=M760, layers=4, dtype="float32",
+         head_dim=model.cfg.hidden_size // model.cfg.num_heads,
+         tie=CHECK_TIE, requests=report, launches=launches)
+    del eng, model
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1739,32 +1874,47 @@ def _same_tokens(name, model, got, want, t0) -> dict:
 
 
 def phase_generate_check() -> None:
-    """A 4-layer float32 model of gpt3-350m's width: the kernels' greedy
-    tokens against the plain chain (``fused_attention=False``) for the
-    dense cache in the model's dtype and in int8, and the paged layout
-    against the dense one; then the threefry bits of 4,096 (seed,
+    """4-layer float32 models of gpt3-350m's and gpt3-760m's widths (head
+    dims 64 and 96): the kernels' greedy tokens against the plain chain
+    (``fused_attention=False``) for the dense cache in the model's dtype
+    and in int8, and the paged layout against the dense one, every kernel
+    of the chain launched; then the threefry bits of 4,096 (seed,
     position) keys on the card against the CPU."""
     from paddle_ray_tpu_torch.core import prng
-    from paddle_ray_tpu_torch.models import build_gpt, generate
+    from paddle_ray_tpu_torch.models import generate
     from paddle_ray_tpu_torch.models.generation import fold_sample_keys
-    g = torch.Generator(device="cuda")
-    g.manual_seed(SEED + 2)
-    model = build_gpt(MODEL, device="cuda", dtype=torch.float32,
-                      num_layers=4, max_seq_len=512, generator=g)
+    from paddle_ray_tpu_torch.ops.paged_attention import (
+        paged_ragged_attention)
+    counters = {**_decode_counters(),
+                "paged_ragged_attention": (paged_ragged_attention,
+                                           "launches"),
+                "paged_ragged_attention_q8": (paged_ragged_attention,
+                                              "launches_q8")}
     b, t0, new = GEN_BATCH, 64, 32
-    ids = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
-        0, model.cfg.vocab_size, (b, t0))).to("cuda")
     report = {}
-    for kv in ("model", "int8"):
-        kernel = generate(model, ids, new, kv_cache_dtype=kv)
-        plain = generate(model, ids, new, kv_cache_dtype=kv,
-                         fused_attention=False)
-        paged = generate(model, ids, new, kv_cache_dtype=kv,
-                         kv_layout="paged", page_size=PAGE)
-        report[f"fused_vs_plain_{kv}"] = _same_tokens(
-            f"fused vs plain ({kv} KV)", model, kernel, plain, t0)
-        report[f"paged_vs_dense_{kv}"] = _same_tokens(
-            f"paged vs dense ({kv} KV)", model, paged, kernel, t0)
+    for name in (MODEL, M760):
+        model = _check_model(name)
+        ids = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
+            0, model.cfg.vocab_size, (b, t0))).to("cuda")
+        _reset(counters)
+        for kv in ("model", "int8"):
+            kernel = generate(model, ids, new, kv_cache_dtype=kv)
+            plain = generate(model, ids, new, kv_cache_dtype=kv,
+                             fused_attention=False)
+            paged = generate(model, ids, new, kv_cache_dtype=kv,
+                             kv_layout="paged", page_size=PAGE)
+            report[f"{name}_fused_vs_plain_{kv}"] = _same_tokens(
+                f"{name} fused vs plain ({kv} KV)", model, kernel, plain, t0)
+            report[f"{name}_paged_vs_dense_{kv}"] = _same_tokens(
+                f"{name} paged vs dense ({kv} KV)", model, paged, kernel, t0)
+        launches = _read(counters)
+        missing = [k for k, n in launches.items()
+                   if n == 0 and k != "int8_stream_matmul"]
+        if missing:
+            raise AssertionError(f"generate_check {name}: kernels not "
+                                 f"launched: {missing}")
+        report[f"{name}_launches"] = launches
+        del model
     r = np.random.RandomState(SEED + 2)
     seeds = np.concatenate([np.asarray([0, 2 ** 31 + 5, 2 ** 32 - 1],
                                        np.uint64),
@@ -1781,7 +1931,6 @@ def phase_generate_check() -> None:
     emit("generate_check", dtype="float32", layers=4, batch=b, prompt=t0,
          new_tokens=new, tie=CHECK_TIE, threefry_keys=len(seeds),
          threefry_bits_equal=True, **report)
-    del model
     torch.cuda.empty_cache()
 
 
@@ -2776,6 +2925,12 @@ def main() -> None:
     del model
     torch.cuda.empty_cache()
     phase_generate_check()
+    g.manual_seed(SEED)
+    m760 = build_gpt(M760, device="cuda", dtype=torch.bfloat16, generator=g)
+    serve_760m = phase_serve(m760, "serve_760m", M760)
+    del m760
+    torch.cuda.empty_cache()
+    phase_check_760m()
     train = phase_train()
     phase_train_check()
     train_760m = phase_train_760m()
@@ -2818,11 +2973,20 @@ def main() -> None:
         ("bf16", "fused_decode_attention"),
         ("int8", "fused_decode_attention_q8"),
         ("int8", "int8_stream_matmul"))}
+    bf16_case = kernel["decode_2048_bf16"]
     entries = [
         _entry("paged_ragged_attention", "paged_attention.cu",
-               "paged_attention.py:108", "_kernel", serve["launches"],
-               kernel["decode_2048_bf16"],
-               "bf16 decode, 8 slots x 2048 tokens, h=16, d=64, page 64",
+               "paged_attention.py:108", "_kernel",
+               serve["launches"] + serve_760m["launches"], bf16_case,
+               f"bf16 pool, bf16 q: decode, 8 slots x 2048 tokens, h=16, "
+               f"d=64, page 64; split-K: {bf16_case['splits']} splits of "
+               f"{bf16_case['pages_per_split']} pages; decode rows without "
+               f"GQA or with GQA 2 on the CUDA cores, tiles of more pairs on "
+               f"mma.sync (a 128-row chunk without GQA "
+               f"{kernel['mixed_bf16']['ms']:.4f} ms against SDPA's "
+               f"{kernel['mixed_bf16']['library_ms']:.4f}); launches: serve "
+               f"(gpt3-350m, d 64) {serve['launches']} and serve_760m "
+               f"(gpt3-760m, d 96) {serve_760m['launches']}",
                paged_err[False]),
         *flash_entries,
         _entry("paged_ragged_attention_q8", "paged_attention.cu",

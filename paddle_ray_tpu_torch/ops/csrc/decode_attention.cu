@@ -21,13 +21,17 @@
 // per pair are far below the card's rate.  The grid reads no row past pos
 // (the TPU kernel's grid walks the whole allocation).
 //
+// d is 64, 80, 96 or 128: a row is whole 16-byte loads (bf16 160 and 192
+// bytes, int8 80 and 96 at d 80 and 96).
+//
 // Design (simple first): one block per (b, h) pair -- gpt3-350m decode at
 // batch 8 has 128 pairs for 132 SMs.  Its 8 warps take groups of 32 cache
 // rows in turn; in a group each lane owns one row for the dot product
 // (16-byte loads of its row, q broadcast from shared memory), the warp keeps
 // its own running max, denominator and an f32 accumulator with each lane
-// owning d / 32 output dims, and the group's weights reach the lanes by
-// shuffle.  At the end the 8 warps' partial softmaxes merge in shared memory.
+// owning output dims lane + 32 j for j < ceil(d / 32) (the last group masked
+// where d is not a multiple of 32), and the group's weights reach the lanes
+// by shuffle.  At the end the 8 warps' partial softmaxes merge in shared memory.
 // Left for later: split the rows of a pair over several blocks (a second
 // pass merges them) when B * h is small, and cp.async prefetch of the next
 // group's rows.
@@ -97,7 +101,8 @@ fused_decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
                               const KV* __restrict__ v, const float* __restrict__ ks,
                               const float* __restrict__ vs, T* __restrict__ out, int T_len,
                               int n_live) {
-  constexpr int kDL = D / 32;         // output dims per lane
+  constexpr int kDL = (D + 31) / 32;  // output dims per lane, the last masked
+  static_assert(D % Vec16<KV>::kN == 0, "whole 16-byte loads of a row");
   constexpr int kVN = Vec16<KV>::kN;  // elements per 16-byte load
   __shared__ float q_s[D];
   __shared__ float m_s[kWarps], l_s[kWarps];
@@ -148,7 +153,8 @@ fused_decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
       const float p = __shfl_sync(0xffffffffu, w, tt);
 #pragma unroll
       for (int j = 0; j < kDL; ++j)
-        acc[j] = fmaf(p, to_f32(vg[static_cast<size_t>(tt) * D + j * 32 + lane]), acc[j]);
+        if (j * 32 + lane < D)
+          acc[j] = fmaf(p, to_f32(vg[static_cast<size_t>(tt) * D + j * 32 + lane]), acc[j]);
     }
   }
 
@@ -158,7 +164,8 @@ fused_decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     l_s[warp] = l;
   }
 #pragma unroll
-  for (int j = 0; j < kDL; ++j) acc_s[warp][j * 32 + lane] = acc[j];
+  for (int j = 0; j < kDL; ++j)
+    if (j * 32 + lane < D) acc_s[warp][j * 32 + lane] = acc[j];
   __syncthreads();
   float mx = kNeg;
 #pragma unroll
@@ -189,6 +196,8 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v, const f
                      const float* vs, void* out, int BH, int T_len, int n_live, cudaStream_t st) {
   switch (d) {
     case 64: return launch<T, KV, Q8, 64>(q, k, v, ks, vs, out, BH, T_len, n_live, st);
+    case 80: return launch<T, KV, Q8, 80>(q, k, v, ks, vs, out, BH, T_len, n_live, st);
+    case 96: return launch<T, KV, Q8, 96>(q, k, v, ks, vs, out, BH, T_len, n_live, st);
     case 128: return launch<T, KV, Q8, 128>(q, k, v, ks, vs, out, BH, T_len, n_live, st);
     default: return cudaErrorInvalidValue;
   }

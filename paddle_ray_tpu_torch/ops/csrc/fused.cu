@@ -21,30 +21,40 @@
 //
 // Layouts (all contiguous): x, residual, y, h, dy, dh2, dx, dres [rows, H] f32 or
 // bf16 (one type); w, b [H] f32 or bf16 (one type); mean, rstd [rows] f32;
-// part [2, blocks, H] f32 scratch; dw, db [H] f32.
+// part [2, blocks, H] f32 scratch (blocks <= min(256, rows)); dw, db [H] f32.
 //
 // What bounds it on the H100: bytes.  About 10 operations an element against
 // the card's ~295 operations per byte, so the least time is x and residual read
 // and y and h written once (forward); h, dy, dh2 read and dx, dres written once
 // (backward), over 3.35 TB/s.
 //
-// Design (simple first):
-//   * forward: one block per row, up to 256 threads walking its columns; the row
-//     of h is staged in shared memory as f32, so x and residual are read once;
-//     the two block reductions (sum, then centred sum of squares) are warp
-//     shuffles and one shared word a warp, in a fixed order;
-//   * backward: each block walks `per_block` consecutive rows (at most 256
-//     blocks).  Per row, one pass reads h and dy, keeps x-hat and dy * w in
-//     shared memory and sums dy * w and dy * w * x-hat; a second pass writes
-//     dres and dx.  Each thread owns the same columns in every row, so it adds
-//     its columns' dw / db terms into shared memory without atomics.  The TPU
-//     kernel carried dw / db across its sequential grid in scratch; blocks run
-//     in no order here, so each writes its partial sums and a second small
-//     kernel sums them over the blocks in a fixed order: deterministic, no
-//     atomics;
-//   * loads are one element a thread (coalesced, not vectorised).  Left for
-//     later: 16-byte loads, several rows a block at small H, a persistent
-//     backward.
+// Design:
+//   * forward (simple first): one block per row, up to 256 threads walking its
+//     columns; the row of h is staged in shared memory as f32, so x and residual
+//     are read once; the two block reductions (sum, then centred sum of squares)
+//     are warp shuffles and one shared word a warp, in a fixed order.  Left for
+//     later: 16-byte loads, several rows a block, registers for the row;
+//   * backward, for the card: a row lives in the registers of a group of G warps
+//     (one up to H 256, two up to 512, four up to 1024, eight beyond), each lane
+//     holding NV 16-byte vectors of h and dy: 8 bf16 or 4 f32 a vector, 8 values
+//     a lane up to H 2048 (measured faster than 16 with half the warps a row),
+//     vector v of the row in lane v % 32 of the group's warp v / 32 % G.  Each is
+//     read once, by 16-byte loads (where H is not a multiple of the vector or a
+//     pointer is not 16-byte aligned, by element loads of columns lane, lane +
+//     32, ... of the same 32-vector blocks).  The two row sums are warp shuffles
+//     and, for G > 1, one exchange through shared memory behind the group's own
+//     named barrier (two slots by row parity): no __syncthreads in the row loop.
+//     With 16-byte loads the next row's h and dy (and dh2) fly by cp.async into
+//     each thread's own shared-memory slots while this row's outputs are
+//     computed and stored: two rows a group in flight, not one.  A fixed grid of
+//     at most 256 blocks of 8 warps, whatever the card, each group striding over
+//     rows, so the sum order is the same on every card.  Each lane carries its
+//     columns' w and dw / db terms in registers across its rows; at the end the
+//     block's groups add theirs in shared memory in group order and the block
+//     writes them once; a second launch sums the blocks in block order (a warp
+//     per eighth of the blocks, 32 columns a block of threads).  The TPU kernel
+//     carried dw / db across its sequential grid in scratch; here the sums are
+//     deterministic without atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,71 +151,270 @@ dal_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const void* _
 }
 
 // ---------------------------------------------------------------------------
-// backward: one block per `per_block` consecutive rows, then the dw / db sum
+// backward: rows in the registers of a group of warps, then the dw / db sum
 // ---------------------------------------------------------------------------
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdBlocks = 256;  // the wrapper's _BWD_BLOCKS
+constexpr int kBwdValues = 8;    // values a lane holds, unless G would pass 8 warps
+
+// A warp's 32 x VE columns from `blk` on, VE values a lane held as 16 bytes of
+// T: with VEC the lane's VE neighbours (one 16-byte load), else columns lane,
+// lane + 32, ... (element loads, each coalesced over the warp) up to H
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+struct Row {
+  static constexpr int VE = 16 / sizeof(T);
+  template <bool VEC>
+  __device__ __forceinline__ static int col(int blk, int lane, int i) {
+    return VEC ? blk + VE * lane + i : blk + lane + 32 * i;
+  }
+  template <bool VEC>
+  __device__ __forceinline__ static uint4 load(const T* p, int blk, int lane, int H) {
+    const int c = col<VEC>(blk, lane, 0);
+    if (VEC) return c < H ? *reinterpret_cast<const uint4*>(p + c) : make_uint4(0, 0, 0, 0);
+    uint4 u = make_uint4(0, 0, 0, 0);
+    T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int i = 0; i < VE; ++i)
+      if (c + 32 * i < H) e[i] = p[c + 32 * i];
+    return u;
+  }
+  __device__ __forceinline__ static float get(const uint4& u, int i) {
+    return to_f32(reinterpret_cast<const T*>(&u)[i]);
+  }
+  template <bool VEC>
+  __device__ __forceinline__ static void put(T* p, int blk, int lane, int H, const float* v) {
+    const int c = col<VEC>(blk, lane, 0);
+    if (VEC) {
+      if (c >= H) return;
+      uint4 u;
+      T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int i = 0; i < VE; ++i) store(e + i, v[i]);
+      *reinterpret_cast<uint4*>(p + c) = u;
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < VE; ++i)
+      if (c + 32 * i < H) store(p + c + 32 * i, v[i]);
+  }
+};
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void group_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// G warps a row, NV vectors a lane; see the file's header.  Two blocks an SM
+// (128 registers a thread, which hold 16 values a lane with their dw / db), one
+// for the widest rows
+template <typename T, int NV, bool VEC>
+__global__ void __launch_bounds__(kBwdThreads, NV * Row<T>::VE <= 16 ? 2 : 1)
 dal_bwd_kernel(const T* __restrict__ h, const float* __restrict__ mean,
                const float* __restrict__ rstd, const void* __restrict__ w,
                const T* __restrict__ dy, const T* __restrict__ dh2, T* __restrict__ dx,
-               T* __restrict__ dres, float* __restrict__ part, int rows, int H, int per_block,
+               T* __restrict__ dres, float* __restrict__ part, int rows, int H, int G,
                uint32_t seed, uint32_t thresh, float scale, int drop, int p_dt) {
-  extern __shared__ float sm[];
-  float* xh_s = sm;           // [H] x-hat of the row
-  float* dyw_s = xh_s + H;    // [H] dy * w of the row
-  float* dw_s = dyw_s + H;    // [H] this block's sum of dy * x-hat
-  float* db_s = dw_s + H;     // [H] this block's sum of dy
-  __shared__ float red[32];
-  for (int c = threadIdx.x; c < H; c += blockDim.x) dw_s[c] = db_s[c] = 0.f;
+  using R = Row<T>;
+  constexpr int VE = R::VE;
+  extern __shared__ __align__(16) float sm[];
+  // with VEC each thread's own 16-byte slots of the next row's h, dy and dh2
+  // ([array][NV][thread]), filled by cp.async while this row is computed
+  uint4* stage_s = reinterpret_cast<uint4*>(sm);
+  float* w_s = sm + (VEC ? 3 * NV * kBwdThreads * 4 : 0);   // [H] w in f32
+  float* sum_s = w_s + H;                                  // [2][H] the block's dw, db
+  __shared__ float red_s[2][kBwdWarps][2];  // the row sums of a group's warps, by row parity
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int groups = kBwdWarps / G, grp = warp / G, wig = warp % G;
+  const int stride = gridDim.x * groups;
 
-  const int r0 = blockIdx.x * per_block;
-  const int r1 = min(r0 + per_block, rows);
-  for (int row = r0; row < r1; ++row) {
+  int blk[NV];  // the lane's warp's column blocks: 32 (wig + G j) vectors in
+#pragma unroll
+  for (int j = 0; j < NV; ++j) blk[j] = VE * 32 * (wig + G * j);
+  auto slot = [&](int a, int j) { return stage_s + (a * NV + j) * kBwdThreads + threadIdx.x; };
+  // the lane's vectors of array a (0 h, 1 dy, 2 dh2) of `row` into its slots
+  auto prefetch = [&](const T* src, int a, int row) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c = blk[j] + VE * lane;
+      if (c < H) cp16(slot(a, j), src + static_cast<size_t>(row) * H + c);
+    }
+  };
+  const int first = blockIdx.x * groups + grp;
+  if (VEC && first < rows) {
+    prefetch(h, 0, first);
+    prefetch(dy, 1, first);
+    if (dh2 != nullptr) prefetch(dh2, 2, first);
+    cp_commit();
+  }
+  for (int c = threadIdx.x; c < H; c += kBwdThreads) w_s[c] = load_param(w, c, p_dt);
+  __syncthreads();
+  // the lane's columns' w in registers (0 past H), read once: reading a lane's
+  // VE neighbours from shared memory every row is a 4- to 8-way bank conflict;
+  // the widest rows (32 values a lane), short of registers, read them there
+  constexpr bool kWRegs = NV * VE <= 16;
+  float dw[NV][VE], db[NV][VE], wv[kWRegs ? NV : 1][VE];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int i = 0; i < VE; ++i) {
+      dw[j][i] = db[j][i] = 0.f;
+      if constexpr (kWRegs) {
+        const int c = R::template col<VEC>(blk[j], lane, i);
+        wv[j][i] = c < H ? w_s[c] : 0.f;
+      }
+    }
+  auto w_at = [&](int j, int i, int c) {
+    if constexpr (kWRegs) return wv[j][i];
+    return c < H ? w_s[c] : 0.f;
+  };
+
+  // a slot this thread did not fill (past H) reads as 0
+  auto take = [&](int a, int j) {
+    return blk[j] + VE * lane < H ? *slot(a, j) : make_uint4(0, 0, 0, 0);
+  };
+  // the row statistics, loaded a row ahead too
+  float mu = first < rows ? mean[first] : 0.f, rs = first < rows ? rstd[first] : 0.f;
+  int par = 0;
+  for (int row = first; row < rows; row += stride, par ^= 1) {
     const size_t base = static_cast<size_t>(row) * H;
-    const float mu = mean[row], rs = rstd[row];
+    const int next = row + stride;
+    uint4 hv[NV], gv[NV], d2[NV];
+    if constexpr (VEC) {
+      cp_wait_all();
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        hv[j] = take(0, j);
+        gv[j] = take(1, j);
+        if (dh2 != nullptr) d2[j] = take(2, j);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        hv[j] = R::template load<VEC>(h + base, blk[j], lane, H);
+        gv[j] = R::template load<VEC>(dy + base, blk[j], lane, H);
+        if (dh2 != nullptr) d2[j] = R::template load<VEC>(dh2 + base, blk[j], lane, H);
+      }
+    }
+    // columns past H hold h = dy = 0 and w = 0: they add exactly 0
     float s1 = 0.f, s2 = 0.f;
-    for (int c = threadIdx.x; c < H; c += blockDim.x) {
-      const float xh = (to_f32(h[base + c]) - mu) * rs;
-      const float g = to_f32(dy[base + c]);
-      const float dyw = g * load_param(w, c, p_dt);
-      xh_s[c] = xh;
-      dyw_s[c] = dyw;
-      s1 += dyw;
-      s2 += dyw * xh;
-      dw_s[c] += g * xh;
-      db_s[c] += g;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) {
+        const int c = R::template col<VEC>(blk[j], lane, i);
+        const float xh = (R::get(hv[j], i) - mu) * rs;
+        const float g = R::get(gv[j], i);
+        const float dyw = g * w_at(j, i, c);
+        s1 += dyw;
+        s2 += dyw * xh;
+        dw[j][i] += g * xh;
+        db[j][i] += g;
+      }
+    // the next row's h and dy fly while this one finishes: this thread's slots
+    // were read into hv / gv, which the sums above have consumed
+    if (VEC && next < rows) {
+      prefetch(h, 0, next);
+      prefetch(dy, 1, next);
     }
-    const float m1 = block_sum(s1, red) / static_cast<float>(H);
-    const float m2 = block_sum(s2, red) / static_cast<float>(H);
-    for (int c = threadIdx.x; c < H; c += blockDim.x) {
-      float d = rs * (dyw_s[c] - m1 - xh_s[c] * m2);
-      if (dh2 != nullptr) d += to_f32(dh2[base + c]);
-      store(dres + base + c, d);
-      if (drop) d = d * (keep(seed, static_cast<uint32_t>(row), static_cast<uint32_t>(c), thresh) ? scale : 0.f);
-      store(dx + base + c, d);
+    const float mu_next = next < rows ? mean[next] : 0.f;
+    const float rs_next = next < rows ? rstd[next] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
     }
+    if (G > 1) {  // the group's warps in order
+      if (lane == 0) {
+        red_s[par][warp][0] = s1;
+        red_s[par][warp][1] = s2;
+      }
+      group_barrier(1 + grp, 32 * G);
+      s1 = s2 = 0.f;
+      for (int k = 0; k < G; ++k) {
+        s1 += red_s[par][grp * G + k][0];
+        s2 += red_s[par][grp * G + k][1];
+      }
+    }
+    const float m1 = s1 / static_cast<float>(H), m2 = s2 / static_cast<float>(H);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float d[VE], x[VE];
+#pragma unroll
+      for (int i = 0; i < VE; ++i) {
+        const int c = R::template col<VEC>(blk[j], lane, i);
+        const float xh = (R::get(hv[j], i) - mu) * rs;
+        const float dyw = R::get(gv[j], i) * w_at(j, i, c);
+        d[i] = rs * (dyw - m1 - xh * m2);
+        if (dh2 != nullptr) d[i] += R::get(d2[j], i);
+        x[i] = drop ? d[i] * (keep(seed, static_cast<uint32_t>(row), static_cast<uint32_t>(c),
+                                   thresh) ? scale : 0.f)
+                    : d[i];
+      }
+      R::template put<VEC>(dres + base, blk[j], lane, H, d);
+      R::template put<VEC>(dx + base, blk[j], lane, H, x);
+    }
+    if (VEC && next < rows) {  // dh2's slots, consumed above
+      if (dh2 != nullptr) prefetch(dh2, 2, next);
+      cp_commit();
+    }
+    mu = mu_next;
+    rs = rs_next;
+  }
+
+  // the block's dw / db: its groups' terms added in group order, written once
+  for (int k = 0; k < groups; ++k) {
+    if (grp == k) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int i = 0; i < VE; ++i) {
+          const int c = R::template col<VEC>(blk[j], lane, i);
+          if (c < H) {
+            sum_s[c] = k == 0 ? dw[j][i] : sum_s[c] + dw[j][i];
+            sum_s[H + c] = k == 0 ? db[j][i] : sum_s[H + c] + db[j][i];
+          }
+        }
+    }
+    __syncthreads();
   }
   float* pw = part + static_cast<size_t>(blockIdx.x) * H;
   float* pb = part + static_cast<size_t>(gridDim.x + blockIdx.x) * H;
-  for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    pw[c] = dw_s[c];
-    pb[c] = db_s[c];
+  for (int c = threadIdx.x; c < H; c += kBwdThreads) {
+    pw[c] = sum_s[c];
+    pb[c] = sum_s[H + c];
   }
 }
 
-// dw[c] = sum over blocks of part[0][blk][c], db likewise, in block order
-__global__ void __launch_bounds__(kMaxThreads)
+// dw[c] = sum over blocks of part[0][blk][c], db likewise (blockIdx.y), in block
+// order: warp k sums blocks k, k + 8, ... of the block's 32 columns, then the 8
+// warps' sums are added in warp order
+__global__ void __launch_bounds__(kBwdThreads)
 dal_bwd_reduce(const float* __restrict__ part, float* __restrict__ dw, float* __restrict__ db,
                int blocks, int H) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= H) return;
-  float sw = 0.f, sb = 0.f;
-  for (int k = 0; k < blocks; ++k) {
-    sw += part[static_cast<size_t>(k) * H + c];
-    sb += part[static_cast<size_t>(blocks + k) * H + c];
+  __shared__ float s[kBwdWarps][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
+  const float* src = part + static_cast<size_t>(blockIdx.y) * blocks * H;
+  float acc = 0.f;
+  if (c < H)
+    for (int k = warp; k < blocks; k += kBwdWarps) acc += src[static_cast<size_t>(k) * H + c];
+  s[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && c < H) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < kBwdWarps; ++k) t += s[k][lane];
+    (blockIdx.y == 0 ? dw : db)[c] = t;
   }
-  dw[c] = sw;
-  db[c] = sb;
 }
 
 template <typename K>
@@ -229,25 +438,72 @@ cudaError_t launch_fwd(const void* x, const void* res, const void* w, const void
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* h, const float* mean, const float* rstd, const void* w,
-                       const void* dy, const void* dh2, void* dx, void* dres, float* part,
-                       float* dw, float* db, int rows, int H, int per_block, uint32_t seed,
-                       uint32_t thresh, float scale, int drop, int p_dt, cudaStream_t st) {
-  auto kern = dal_bwd_kernel<T>;
-  const size_t smem = sizeof(float) * 4 * H;
+struct BwdArgs {
+  const void *h, *w, *dy, *dh2;
+  const float *mean, *rstd;
+  void *dx, *dres;
+  float *part, *dw, *db;
+  int rows, H;
+  uint32_t seed, thresh;
+  float scale;
+  int drop, p_dt;
+  cudaStream_t st;
+};
+
+template <typename T, int NV, bool VEC>
+cudaError_t launch_bwd(const BwdArgs& a, int G) {
+  auto kern = dal_bwd_kernel<T, NV, VEC>;
+  const size_t smem = sizeof(float) * 3 * a.H + (VEC ? 3 * NV * kBwdThreads * 16 : 0);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (rows + per_block - 1) / per_block;
-  kern<<<blocks, block_threads(H), smem, st>>>(
-      static_cast<const T*>(h), mean, rstd, w, static_cast<const T*>(dy),
-      static_cast<const T*>(dh2), static_cast<T*>(dx), static_cast<T*>(dres), part, rows, H,
-      per_block, seed, thresh, scale, drop, p_dt);
+  const int groups = kBwdWarps / G;
+  const int need = (a.rows + groups - 1) / groups;
+  const int blocks = need < kBwdBlocks ? need : kBwdBlocks;
+  kern<<<blocks, kBwdThreads, smem, a.st>>>(
+      static_cast<const T*>(a.h), a.mean, a.rstd, a.w, static_cast<const T*>(a.dy),
+      static_cast<const T*>(a.dh2), static_cast<T*>(a.dx), static_cast<T*>(a.dres), a.part, a.rows,
+      a.H, G, a.seed, a.thresh, a.scale, a.drop, a.p_dt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dal_bwd_reduce<<<(H + kMaxThreads - 1) / kMaxThreads, kMaxThreads, 0, st>>>(part, dw, db,
-                                                                             blocks, H);
+  dal_bwd_reduce<<<dim3((a.H + 31) / 32, 2), kBwdThreads, 0, a.st>>>(a.part, a.dw, a.db, blocks,
+                                                                     a.H);
   return cudaGetLastError();
+}
+
+// G, the warps a row: the fewest (a power of two, at most 8) that keep a lane at
+// kBwdValues values; NV, the vectors a lane then holds (up to 4 for bf16 and 8
+// for float32 rows wider than 2048)
+template <typename T, bool VEC>
+cudaError_t bwd_by_width(const BwdArgs& a) {
+  constexpr int VE = Row<T>::VE;
+  int G = 1;
+  while (G < kBwdWarps && G * 32 * kBwdValues < a.H) G *= 2;
+  const int nv = (a.H + G * 32 * VE - 1) / (G * 32 * VE);
+  switch (nv) {
+    case 1: return launch_bwd<T, 1, VEC>(a, G);
+    case 2: return launch_bwd<T, 2, VEC>(a, G);
+    case 3: return launch_bwd<T, 3, VEC>(a, G);
+    case 4: return launch_bwd<T, 4, VEC>(a, G);
+  }
+  if constexpr (VE == 4) {
+    switch (nv) {
+      case 5: return launch_bwd<T, 5, VEC>(a, G);
+      case 6: return launch_bwd<T, 6, VEC>(a, G);
+      case 7: return launch_bwd<T, 7, VEC>(a, G);
+      case 8: return launch_bwd<T, 8, VEC>(a, G);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T>
+cudaError_t launch_bwd_dtype(const BwdArgs& a) {
+  const bool vec = a.H % Row<T>::VE == 0 && aligned16(a.h) && aligned16(a.dy) &&
+                   aligned16(a.dx) && aligned16(a.dres) &&
+                   (a.dh2 == nullptr || aligned16(a.dh2));
+  return vec ? bwd_by_width<T, true>(a) : bwd_by_width<T, false>(a);
 }
 
 bool bad_type(int dt) { return dt != kF32 && dt != kBF16; }
@@ -272,25 +528,18 @@ extern "C" int prt_dal_fwd(const void* x, const void* res, const void* w, const 
                                    eps, p_dtype, st);
 }
 
+// part: f32 [2, min(256, rows), H] scratch.
 extern "C" int prt_dal_bwd(const void* h, const void* mean, const void* rstd, const void* w,
                            const void* dy, const void* dh2, void* dx, void* dres, void* part,
-                           void* dw, void* db, int rows, int H, int per_block, uint32_t seed,
-                           uint32_t thresh, float scale, int drop, int dtype, int p_dtype,
-                           void* stream) {
-  if (rows <= 0 || H <= 0 || H > kMaxH || per_block <= 0 || bad_type(dtype) ||
-      bad_type(p_dtype) || (rows + per_block - 1) / per_block > 65535)
+                           void* dw, void* db, int rows, int H, uint32_t seed, uint32_t thresh,
+                           float scale, int drop, int dtype, int p_dtype, void* stream) {
+  if (rows <= 0 || H <= 0 || H > kMaxH || bad_type(dtype) || bad_type(p_dtype))
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  float* pt = static_cast<float*>(part);
-  float* gw = static_cast<float*>(dw);
-  float* gb = static_cast<float*>(db);
-  if (dtype == kF32)
-    return launch_bwd<float>(h, m, r, w, dy, dh2, dx, dres, pt, gw, gb, rows, H, per_block, seed,
-                             thresh, scale, drop, p_dtype, st);
-  return launch_bwd<__nv_bfloat16>(h, m, r, w, dy, dh2, dx, dres, pt, gw, gb, rows, H, per_block,
-                                   seed, thresh, scale, drop, p_dtype, st);
+  const BwdArgs a{h, w, dy, dh2, static_cast<const float*>(mean), static_cast<const float*>(rstd),
+                  dx, dres, static_cast<float*>(part), static_cast<float*>(dw),
+                  static_cast<float*>(db), rows, H, seed, thresh, scale, drop, p_dtype,
+                  static_cast<cudaStream_t>(stream)};
+  return dtype == kF32 ? launch_bwd_dtype<float>(a) : launch_bwd_dtype<__nv_bfloat16>(a);
 }
 
 extern "C" const char* prt_fused_error_string(int err) {

@@ -4,13 +4,14 @@
 // and `_kernel_q8` (with their helpers `_online`, `_masked_logits` and
 // `_finish`): ragged per-slot query chunks attend that slot's pages of a
 // paged KV pool, causal within the chunk at absolute position
-// `lengths - q_lens + i`, with GQA (h_q = G * h_kv).  Masked terms weigh exactly 0, dead slots and pad rows
-// give 0, and a row whose softmax denominator is 0 emits 0.
+// `lengths - q_lens + i`, with GQA (h_q = G * h_kv).  Masked terms weigh
+// exactly 0, dead slots and pad rows give 0, and a row whose softmax
+// denominator is 0 emits 0.
 //
 // Layouts (all contiguous):
 //   q      [B, C, h_q, d]         pre-scaled by the wrapper, in q's dtype
 //   k, v   [N, page, h_kv, d]     one layer of the pool; page 0 is the null page;
-//                                 q's dtype, or int8 (`_kernel_q8`) with
+//                                 q's dtype (`_kernel`), or int8 (`_kernel_q8`) with
 //   ks, vs [N, page, h_kv] f32    per-(token, head) scales: the K scale folds
 //                                 into the logit after the dot, the V scale into
 //                                 the accumulation weight only (the softmax
@@ -18,29 +19,10 @@
 //   table  [B, P] int32           physical page per logical block
 //   lengths, q_lens [B] int32
 //   out    [B, C, h_q, d]         q's dtype
-// d is 64 or 128 over a pool in q's dtype, 64, 80, 96 or 128 over an int8 one;
-// pages of 32, 64 or 128 rows.
+// d is 64, 80, 96 or 128; pages of 32, 64 or 128 rows.
 //
-// Two designs.
-//
-// A pool in q's dtype (`paged_ragged_attention_kernel`, simple first):
-//   * one block per (slot b, kv head, tile of 32 (query row, group member)
-//     pairs); 8 warps, each warp owns 4 pairs and keeps their running max m,
-//     denominator l and accumulator acc in registers (f32);
-//   * the block walks its slot's pages in order -- the loop that replaces
-//     the TPU's sequential grid axis -- reading each page id from the table
-//     itself, and stops after the last page any of its rows can see
-//     (never past ceil(lengths[b] / page), never past P);
-//   * each page's K and V tiles are staged in shared memory as f32 (K rows
-//     padded by one word, so lane i reading key i is bank-conflict free);
-//   * logits: each lane owns keys lane, lane+32, ...; the accumulation: each
-//     lane owns output dims lane, lane+32, ..., with the page's weights
-//     staged per warp in shared memory.
-//   It uses neither bound well: the dot products run on the f32 CUDA cores, the
-//   page loads are synchronous, a decode slot's pages stream through one block,
-//   and at decode without GQA 7 of a block's 8 warps have no pair.
-//
-// An int8 pool (`q8::paged_q8_kernel`), designed for the H100:
+// One design for both pools (`paged_kernel<T, KV, D, PAGE>`, KV the pool's
+// element: int8, or q's own type T):
 //   * split-K over pages (flash-decoding): one block per (split, tile of 16
 //     pairs, slot and kv head); the wrapper picks the number of splits and the
 //     pages of each from the lengths it is given on the host (else the table's
@@ -52,27 +34,33 @@
 //     workspace and the last block of the tile to finish -- found by an atomic
 //     counter it resets -- merges them by the log-sum-exp rule, so a call stays
 //     one launch.  A split whose keys are all masked carries l = 0 and weighs 0;
-//   * 4 warps split the keys, not the rows: each takes every fourth chunk of up
-//     to 64 keys of the split's pages, so at decode no warp idles, and the warps'
-//     parts are merged the same way in shared memory;
-//   * each warp streams its chunks through its own ring of two stages: int8 K
-//     and V rows by 16-byte `cp.async` (rows padded by 16 bytes) and their f32
-//     scales by 4-byte ones, the next chunk in flight while this one is
-//     computed; the int8 values are widened in registers (a byte permute under
-//     2^23 and one subtraction: exact, and off the 16-a-clock conversion unit);
-//   * a tile with more than `kTcMinPairs` live pairs and bf16 q runs both
-//     products on the tensor cores (`mma.sync` m16n8k16, bf16 in, f32 out; int8 is exact in
-//     bf16): S = Q K^T, then the K scale, the mask and the online softmax in f32
-//     registers, then O += P V with P times the V scale rounded to bf16 as the A
-//     operand.  Keys are permuted inside each step of 16 so that a lane's V
-//     operand is four 32-bit words transposed byte-wise.  Other tiles (decode
-//     rows, float32 q) run on the CUDA cores: a lane per key for the logits, a
-//     lane per pair of dims for the weighted sum, weights through shared memory.
+//   * 4 warps split the keys, not the rows: each takes every fourth chunk of the
+//     split's pages, so at decode no warp idles, and the warps' parts are merged
+//     the same way in shared memory.  A chunk is 64 keys of int8 or 32 of a wider
+//     type (at most a page): 8 KB of K and V at D 64 either way;
+//   * each warp streams its chunks through its own ring: K and V rows by 16-byte
+//     `cp.async` (rows padded by 16 bytes, so the lane-per-key reads and the
+//     tensor-core fragments are free of bank conflicts), an int8 pool's f32
+//     scales by 4-byte ones, the next chunk in flight while this one is computed.
+//     Two stages, or one where two would pass the 227 KB a block may hold
+//     (float32 at D 128).  int8 is widened in registers by a byte permute under
+//     2^23 and one subtraction (exact, off the 16-a-clock conversion unit), bf16
+//     by a shift;
+//   * a tile with more than `kTcMinPairs*` live pairs and bf16 q runs both
+//     products on the tensor cores (`mma.sync` m16n8k16, bf16 in, f32 out; int8 is
+//     exact in bf16): S = Q K^T, then the K scale, the mask and the online softmax
+//     in f32 registers, then O += P V with P (times the V scale) rounded to bf16
+//     as the A operand.  A bf16 pool's K rows are the B operand as they lie; its
+//     V reaches the product by `ldmatrix.trans`.  An int8 pool's keys are
+//     permuted inside each step of 16 so that a lane's V operand is four 32-bit
+//     words transposed byte-wise.  Other tiles (decode rows, float32 q) run on
+//     the CUDA cores: a lane per key for the logits, a lane per pair of dims for
+//     the weighted sum, weights through shared memory.
 //   The logits live in the exp2 domain (the K scale times log2 e); the result
 //   is the natural-exp one up to rounding.
 //
 // What bounds it on the H100: decode (one row per slot) is bound by bytes --
-// every live K and V page is read once, 2 * len * h_kv * d * sizeof(T) per
+// every live K and V page is read once, 2 * len * h_kv * d * sizeof(KV) per
 // slot (int8: d + 4 bytes per row and head), against 3.35 TB/s.  The 128-row
 // prefill chunks are bound by operations: 4 * C * len * h * d FLOPs against the
 // tensor cores.
@@ -85,293 +73,26 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kPairs = kWarps * kRowsPerWarp;  // (row, group member) pairs per block
-constexpr float kNeg = -1e30f;                 // the TPU kernel's _NEG
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;             // (row, group member) pairs of a tile: one m16 tile
+constexpr int kMaxSmem = 232448;      // a block's shared memory on the H100
+constexpr float kNeg = -1e30f;        // the TPU kernel's _NEG
+constexpr float kLog2e = 1.4426950408889634f;
+// bf16 tiles with more live pairs than this run on the tensor cores, the rest
+// on the CUDA cores: the faster side at each count, as
+// tools/torch_paged_splits.py measures it, per pool kind: over an int8 pool
+// decode rows without GQA or with GQA 2 on the CUDA cores, over a bf16 pool
+// (which needs no widening) only tiles of one pair
+constexpr int kTcMinPairsQ8 = 2;
+constexpr int kTcMinPairsBf16 = 1;
+static_assert(kTcMinPairsQ8 <= 4 && kTcMinPairsBf16 <= 4,
+              "bf16 tiles reach the CUDA cores with 4 pairs at most");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// A 16-byte load of T, widened to f32.
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void widen(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void widen(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D, int PAGE>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (PAGE * (D + 1) + PAGE * D + kPairs * D + kPairs * PAGE);
-}
-
-template <typename T, int D, int PAGE>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_ragged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                              const T* __restrict__ vpool, const int* __restrict__ table,
-                              const int* __restrict__ lengths, const int* __restrict__ q_lens,
-                              T* __restrict__ out, int C, int h_q, int h_kv, int P) {
-  constexpr int kDL = D / 32;        // output dims per lane
-  constexpr int kKL = PAGE / 32;     // keys per lane
-  constexpr int kKS = D + 1;         // padded K row, in floats
-  constexpr int kVN = Vec16<T>::kN;  // elements per 16-byte load
-  extern __shared__ float smem[];
-  float* k_s = smem;                 // [PAGE][D + 1]
-  float* v_s = k_s + PAGE * kKS;     // [PAGE][D]
-  float* q_s = v_s + PAGE * D;       // [kPairs][D]
-  float* p_s = q_s + kPairs * D;     // [kPairs][PAGE]
-
-  const int b = blockIdx.x, hk = blockIdx.y;
-  const int group = h_q / h_kv;
-  const int pair0 = blockIdx.z * kPairs;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ln = lengths[b];
-  const int ql = min(q_lens[b], C);
-  const int n_pairs = C * group;            // pairs of this (b, kv head)
-  const int live_pairs = ql * group;        // pair index = row * group + member
-  const int here = min(kPairs, n_pairs - pair0);
-
-  auto out_row = [&](int pi) {
-    const int qi = pi / group, g = pi % group;
-    return out + ((static_cast<size_t>(b) * C + qi) * h_q + hk * group + g) * D;
-  };
-
-  if (ln <= 0 || pair0 >= live_pairs) {
-    // dead slot, or every row of this tile is a pad row: zeros
-    for (int i = threadIdx.x; i < here * D; i += blockDim.x)
-      store(out_row(pair0 + i / D) + i % D, 0.f);
-    return;
-  }
-
-  // stage this tile's query rows (already scaled) as f32
-  for (int i = threadIdx.x; i < kPairs * D; i += blockDim.x) {
-    const int pi = pair0 + i / D;
-    const int qi = pi / group, g = pi % group;
-    float x = 0.f;
-    if (pi < live_pairs)
-      x = to_f32(q[((static_cast<size_t>(b) * C + qi) * h_q + hk * group + g) * D + i % D]);
-    q_s[i] = x;
-  }
-
-  // the last key any live row of this tile may see
-  const int last_row = (min(live_pairs, pair0 + kPairs) - 1) / group;
-  const int last_pos = ln - ql + last_row;
-  const int n_pages = last_pos < 0 ? 0 : min(last_pos / PAGE + 1, P);
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDL];
-  int qpos[kRowsPerWarp];
-  bool live[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int pi = pair0 + warp * kRowsPerWarp + r;
-    live[r] = pi < live_pairs;
-    qpos[r] = ln - ql + pi / group;
-    m[r] = kNeg;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDL; ++j) acc[r][j] = 0.f;
-  }
-  const bool warp_live = pair0 + warp * kRowsPerWarp < live_pairs;
-  const size_t row_stride = static_cast<size_t>(h_kv) * D;  // between tokens of a page
-
-  for (int jp = 0; jp < n_pages; ++jp) {
-    __syncthreads();  // the previous page's tiles are no longer read
-    const int pid = table[static_cast<size_t>(b) * P + jp];
-    const T* kp = kpool + static_cast<size_t>(pid) * PAGE * row_stride + hk * D;
-    const T* vp = vpool + static_cast<size_t>(pid) * PAGE * row_stride + hk * D;
-    for (int i = threadIdx.x; i < PAGE * (D / kVN); i += blockDim.x) {
-      const int t = i / (D / kVN), c = (i % (D / kVN)) * kVN;
-      const uint4 uk = *reinterpret_cast<const uint4*>(kp + t * row_stride + c);
-      const uint4 uv = *reinterpret_cast<const uint4*>(vp + t * row_stride + c);
-      float fk[kVN], fv[kVN];
-      Vec16<T>::widen(uk, fk);
-      Vec16<T>::widen(uv, fv);
-#pragma unroll
-      for (int e = 0; e < kVN; ++e) {
-        k_s[t * kKS + c + e] = fk[e];
-        v_s[t * D + c + e] = fv[e];
-      }
-    }
-    __syncthreads();
-    if (!warp_live) continue;
-
-    // logits: s[r][kk] = q_r . k_(kk*32 + lane)
-    float s[kRowsPerWarp][kKL];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int kk = 0; kk < kKL; ++kk) s[r][kk] = 0.f;
-    const float* qw = q_s + warp * kRowsPerWarp * D;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float kv[kKL];
-#pragma unroll
-      for (int kk = 0; kk < kKL; ++kk) kv[kk] = k_s[(kk * 32 + lane) * kKS + c];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float qv = qw[r * D + c];
-#pragma unroll
-        for (int kk = 0; kk < kKL; ++kk) s[r][kk] = fmaf(qv, kv[kk], s[r][kk]);
-      }
-    }
-
-    // online softmax: masked terms weigh exactly 0
-    float* pw = p_s + warp * kRowsPerWarp * PAGE;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      bool ok[kKL];
-      float mx = kNeg;
-#pragma unroll
-      for (int kk = 0; kk < kKL; ++kk) {
-        const int t = jp * PAGE + kk * 32 + lane;
-        ok[kk] = live[r] && t <= qpos[r];
-        s[r][kk] = ok[kk] ? s[r][kk] : kNeg;
-        mx = fmaxf(mx, s[r][kk]);
-      }
-      const float m_new = fmaxf(m[r], warp_max(mx));
-      const float corr = expf(m[r] - m_new);
-      float esum = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKL; ++kk) {
-        const float e = ok[kk] ? expf(s[r][kk] - m_new) : 0.f;
-        pw[r * PAGE + kk * 32 + lane] = e;
-        esum += e;
-      }
-      l[r] = l[r] * corr + warp_sum(esum);
-#pragma unroll
-      for (int j = 0; j < kDL; ++j) acc[r][j] *= corr;
-      m[r] = m_new;
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int t = 0; t < PAGE; ++t) {
-      float vv[kDL];
-#pragma unroll
-      for (int j = 0; j < kDL; ++j) vv[j] = v_s[t * D + j * 32 + lane];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float p = pw[r * PAGE + t];
-#pragma unroll
-        for (int j = 0; j < kDL; ++j) acc[r][j] = fmaf(p, vv[j], acc[r][j]);
-      }
-    }
-    __syncwarp();
-  }
-
-  // finish: l == 0 (dead or fully masked row) emits zeros
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int pi = pair0 + warp * kRowsPerWarp + r;
-    if (pi >= n_pairs) continue;
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    T* o = out_row(pi);
-#pragma unroll
-    for (int j = 0; j < kDL; ++j) store(o + j * 32 + lane, acc[r][j] / l_safe);
-  }
-}
-
-template <typename T, int D, int PAGE>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* table,
-                   const int* lengths, const int* q_lens, void* out, int B, int C, int h_q,
-                   int h_kv, int P, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, PAGE>();
-  auto kern = paged_ragged_attention_kernel<T, D, PAGE>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int pairs = C * (h_q / h_kv);
-  dim3 grid(B, h_kv, (pairs + kPairs - 1) / kPairs);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), table,
-      lengths, q_lens, static_cast<T*>(out), C, h_q, h_kv, P);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_page(int page, const void* q, const void* k, const void* v, const int* table,
-                        const int* lengths, const int* q_lens, void* out, int B, int C, int h_q,
-                        int h_kv, int P, cudaStream_t stream) {
-  switch (page) {
-    case 32: return launch<T, D, 32>(q, k, v, table, lengths, q_lens, out, B, C, h_q, h_kv, P, stream);
-    case 64: return launch<T, D, 64>(q, k, v, table, lengths, q_lens, out, B, C, h_q, h_kv, P, stream);
-    case 128: return launch<T, D, 128>(q, k, v, table, lengths, q_lens, out, B, C, h_q, h_kv, P, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t launch_dtype(int d, int page, const void* q, const void* k, const void* v,
-                         const int* table, const int* lengths, const int* q_lens, void* out,
-                         int B, int C, int h_q, int h_kv, int P, cudaStream_t stream) {
-  switch (d) {
-    case 64: return launch_page<T, 64>(page, q, k, v, table, lengths, q_lens, out, B, C, h_q, h_kv, P, stream);
-    case 128: return launch_page<T, 128>(page, q, k, v, table, lengths, q_lens, out, B, C, h_q, h_kv, P, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The int8 pool: split-K over pages, warps over pages, a cp.async ring of int8
-// ---------------------------------------------------------------------------
-namespace q8 {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16;    // (row, group member) pairs of a tile: one m16 tile
-constexpr int kStages = 2;   // each warp's ring (3 stages, or 8 warps, measured no faster)
-constexpr float kLog2e = 1.4426950408889634f;
-// bf16 tiles with more live pairs than this run on the tensor cores, the rest
-// (decode rows without GQA or with GQA 2) on the CUDA cores: the faster side at
-// each count, as tools/torch_paged_splits.py measures it
-constexpr int kTcMinPairs = 2;
-static_assert(kTcMinPairs <= 4, "bf16 tiles reach the CUDA cores with 4 pairs at most");
-
-template <int D, int PAGE>
-struct Cfg {
-  static constexpr int kKC = PAGE < 64 ? PAGE : 64;         // keys of a streamed chunk
-  static constexpr int kCPP = PAGE / kKC;                    // chunks a page
-  static constexpr int kRS = D + 16;                         // a K / V row in shared memory
-  static constexpr int kVals = kKC * kRS;                    // one K or V chunk, bytes
-  static constexpr int kStage = 2 * kVals + 2 * kKC * 4;     // K, V and their scales
-  static constexpr int kRing = kWarps * kStages * kStage;
-  static constexpr int kGroups = (D + 31) / 32;              // 32-dim groups of P V's mma
-  static constexpr int kLanePairs = (D + 63) / 64;           // dim pairs a lane owns (CUDA cores)
-  static constexpr size_t kRed = sizeof(float) * kWarps * kRows * (D + 2);
-  static_assert(kRed <= kRing, "the block merge reuses the ring");
-  static constexpr size_t kSmem =
-      kRing + sizeof(float) * (kRows * D + kWarps * kRows * kKC) + sizeof(int) * (kRows + 4);
-};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -401,15 +122,91 @@ __device__ __forceinline__ float i8_to_f32(uint32_t u) {
 __device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
-// bytes 0 and 1 of w, int8, as bf16x2
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w) {
-  const uint32_t u = w ^ 0x8080u;
-  return pack_exact(i8_to_f32<0>(u), i8_to_f32<1>(u));
-}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
+
+// A pool element type in shared memory: 16 bytes widened to f32, two
+// neighbouring values as f32, and (bf16-exact types) two as an mma bf16x2.
+template <typename KV> struct Elt;
+template <> struct Elt<int8_t> {
+  static constexpr int kN = 16;
+  __device__ __forceinline__ static void widen(const uint4& w, float* f) {
+    const uint32_t ws[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
+                            w.w ^ 0x80808080u};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      f[4 * h] = i8_to_f32<0>(ws[h]);
+      f[4 * h + 1] = i8_to_f32<1>(ws[h]);
+      f[4 * h + 2] = i8_to_f32<2>(ws[h]);
+      f[4 * h + 3] = i8_to_f32<3>(ws[h]);
+    }
+  }
+  __device__ __forceinline__ static float2 pair(const uint8_t* p) {
+    const uint32_t u = *reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+    return make_float2(i8_to_f32<0>(u), i8_to_f32<1>(u));
+  }
+  __device__ __forceinline__ static uint32_t bf16x2(const uint8_t* p) {
+    const uint32_t u = *reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+    return pack_exact(i8_to_f32<0>(u), i8_to_f32<1>(u));
+  }
+};
+template <> struct Elt<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ __forceinline__ static void widen(const uint4& w, float* f) {
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      f[2 * h] = __uint_as_float(ws[h] << 16);
+      f[2 * h + 1] = __uint_as_float(ws[h] & 0xffff0000u);
+    }
+  }
+  __device__ __forceinline__ static float2 pair(const uint8_t* p) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+    return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+  }
+  __device__ __forceinline__ static uint32_t bf16x2(const uint8_t* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+};
+template <> struct Elt<float> {
+  static constexpr int kN = 4;
+  __device__ __forceinline__ static void widen(const uint4& w, float* f) {
+    f[0] = __uint_as_float(w.x);
+    f[1] = __uint_as_float(w.y);
+    f[2] = __uint_as_float(w.z);
+    f[3] = __uint_as_float(w.w);
+  }
+  __device__ __forceinline__ static float2 pair(const uint8_t* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+};
+
+template <typename KV, int D, int PAGE>
+struct Cfg {
+  static constexpr bool kQ8 = std::is_same<KV, int8_t>::value;
+  static constexpr int kES = sizeof(KV);
+  static constexpr int kChunk = kQ8 ? 64 : 32;                // the wrapper's chunk_keys
+  static constexpr int kKC = PAGE < kChunk ? PAGE : kChunk;   // keys of a streamed chunk
+  static constexpr int kCPP = PAGE / kKC;                     // chunks a page
+  static constexpr int kRS = D * kES + 16;                    // a K / V row in shared memory, bytes
+  static constexpr int kVals = kKC * kRS;                     // one K or V chunk, bytes
+  static constexpr int kStage = 2 * kVals + (kQ8 ? 2 * kKC * 4 : 0);  // K, V (and their scales)
+  static constexpr size_t kRest =
+      sizeof(float) * (kRows * D + kWarps * kRows * kKC) + sizeof(int) * (kRows + 4);
+  // each warp's ring: two stages where they fit, else one (3 or 4 stages, or 8
+  // warps, measured no faster over either pool)
+  static constexpr int kStages = kWarps * 2 * kStage + kRest <= kMaxSmem ? 2 : 1;
+  static constexpr int kRing = kWarps * kStages * kStage;
+  static constexpr int kGroups = (D + 31) / 32;               // 32-dim groups of int8 P V's mma
+  static constexpr int kLanePairs = (D + 63) / 64;            // dim pairs a lane owns (CUDA cores)
+  static constexpr size_t kRed = sizeof(float) * kWarps * kRows * (D + 2);
+  static_assert(kRed <= kRing, "the block merge reuses the ring");
+  static constexpr size_t kSmem = kRing + kRest;
+  static_assert(kSmem <= kMaxSmem, "a block's shared memory");
+  static_assert(D * kES % 16 == 0 && D % 16 == 0, "16-byte rows, 16-dim mma steps");
+};
 
 // mma.sync m16n8k16, bf16 inputs, f32 accumulators in place
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -421,21 +218,31 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// four 8x8 b16 matrices transposed: lanes 8 m .. 8 m + 7 give matrix m's rows
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
 // One block per (split of the slot's pages, tile of 16 (row, member) pairs, slot
 // and kv head); see the file's header for the design.
-template <typename T, int D, int PAGE>
+template <typename T, typename KV, int D, int PAGE>
 __global__ void __launch_bounds__(kThreads)
-paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
-                const int8_t* __restrict__ vpool, const float* __restrict__ kscale,
-                const float* __restrict__ vscale, const int* __restrict__ table,
-                const int* __restrict__ lengths, const int* __restrict__ q_lens,
-                T* __restrict__ out, float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
-                int* __restrict__ counters, int C, int h_q, int h_kv, int P, int pps) {
-  using Cf = Cfg<D, PAGE>;
+paged_kernel(const T* __restrict__ q, const KV* __restrict__ kpool,
+             const KV* __restrict__ vpool, const float* __restrict__ kscale,
+             const float* __restrict__ vscale, const int* __restrict__ table,
+             const int* __restrict__ lengths, const int* __restrict__ q_lens,
+             T* __restrict__ out, float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
+             int* __restrict__ counters, int C, int h_q, int h_kv, int P, int pps) {
+  using Cf = Cfg<KV, D, PAGE>;
+  using E = Elt<KV>;
+  constexpr bool kQ8 = Cf::kQ8;
+  constexpr int ES = Cf::kES;
   constexpr int KC = Cf::kKC;
   constexpr int RS = Cf::kRS;
-  extern __shared__ __align__(16) uint8_t smem_q8[];
-  uint8_t* smem = smem_q8;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw;
   float* q_s = reinterpret_cast<float*>(smem + Cf::kRing);   // [16][D], CUDA-core tiles
   float* p_s = q_s + kRows * D;                              // [warp][16][KC]
   int* pos_s = reinterpret_cast<int*>(p_s + kWarps * kRows * KC);  // [16]
@@ -476,7 +283,7 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
   const int c_begin = split * pps * Cf::kCPP;
   const int c_end = (split == n_live - 1 ? n_pages : (split + 1) * pps) * Cf::kCPP;
   const int n_my = c_end - c_begin > warp ? (c_end - c_begin - warp + kWarps - 1) / kWarps : 0;
-  auto stage = [&](int st) { return smem + (warp * kStages + st) * Cf::kStage; };
+  auto stage = [&](int st) { return smem + (warp * Cf::kStages + st) * Cf::kStage; };
   // the page ids of the warp's chunks, 32 at a time, a lane each: no table read
   // waits in front of a chunk's loads
   int pid_group = -1, pid_lane = 0;
@@ -493,42 +300,49 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
     const int c = c_begin + warp + kWarps * i;
     uint8_t* k_s = stage(st);
     uint8_t* v_s = k_s + Cf::kVals;
-    float* ks_s = reinterpret_cast<float*>(v_s + Cf::kVals);
     const int pid = page_id(i);
     const size_t tok0 = static_cast<size_t>(pid) * PAGE + (c % Cf::kCPP) * KC;
-    const size_t stride = static_cast<size_t>(h_kv) * D;  // between tokens
-    const int8_t* kp = kpool + (tok0 * h_kv + hk) * D;
-    const int8_t* vp = vpool + (tok0 * h_kv + hk) * D;
-    constexpr int kPieces = D / 16;
-    for (int i = lane; i < KC * kPieces; i += 32) {
-      const int t = i / kPieces, x = 16 * (i % kPieces);
+    const size_t stride = static_cast<size_t>(h_kv) * D * ES;  // bytes between tokens
+    const uint8_t* kp = reinterpret_cast<const uint8_t*>(kpool + (tok0 * h_kv + hk) * D);
+    const uint8_t* vp = reinterpret_cast<const uint8_t*>(vpool + (tok0 * h_kv + hk) * D);
+    constexpr int kPieces = D * ES / 16;
+    for (int j = lane; j < KC * kPieces; j += 32) {
+      const int t = j / kPieces, x = 16 * (j % kPieces);
       cp16(k_s + t * RS + x, kp + t * stride + x);
       cp16(v_s + t * RS + x, vp + t * stride + x);
     }
-    for (int t = lane; t < KC; t += 32) {
-      const size_t si = (tok0 + t) * h_kv + hk;
-      cp4(ks_s + t, kscale + si);
-      cp4(ks_s + KC + t, vscale + si);
+    if constexpr (kQ8) {
+      float* ks_s = reinterpret_cast<float*>(v_s + Cf::kVals);
+      for (int t = lane; t < KC; t += 32) {
+        const size_t si = (tok0 + t) * h_kv + hk;
+        cp4(ks_s + t, kscale + si);
+        cp4(ks_s + KC + t, vscale + si);
+      }
     }
   };
   // the warp's chunks through its ring: the loads of chunk i + 1 fly while chunk i
-  // is computed; then every warp's copies are done and the ring may be reused
+  // is computed (with two stages); then every warp's copies are done and the
+  // ring may be reused
   auto stream = [&](auto&& compute) {
 #pragma unroll
-    for (int i = 0; i < kStages - 1; ++i) {
+    for (int i = 0; i < Cf::kStages - 1; ++i) {
       if (i < n_my) issue(i, i);
       cp_commit();
     }
     for (int i = 0; i < n_my; ++i) {
-      if (i + kStages - 1 < n_my) issue(i + kStages - 1, (i + kStages - 1) % kStages);
+      if (i + Cf::kStages - 1 < n_my) issue(i + Cf::kStages - 1, (i + Cf::kStages - 1) % Cf::kStages);
       cp_commit();
-      cp_wait<kStages - 1>();
+      cp_wait<Cf::kStages - 1>();
       __syncwarp();
-      compute(stage(i % kStages), (c_begin + warp + kWarps * i) * KC);
+      compute(stage(i % Cf::kStages), (c_begin + warp + kWarps * i) * KC);
       __syncwarp();
     }
     cp_wait<0>();
     __syncthreads();
+  };
+  // an int8 pool's scales of the chunk at k_s: K's, then V's
+  auto kscales = [&](const uint8_t* k_s) {
+    return reinterpret_cast<const float*>(k_s + 2 * Cf::kVals);
   };
   // the block merge's inputs, over the ring: each warp's m, l and acc per pair
   float* red_acc = reinterpret_cast<float*>(smem);          // [warp][16][D]
@@ -536,14 +350,15 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
   float* red_l = red_m + kWarps * kRows;
 
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kTcMin = kQ8 ? kTcMinPairsQ8 : kTcMinPairsBf16;
   bool done = false;
   if constexpr (kBf16) {
-    if (live > kTcMinPairs) {
+    if (live > kTcMin) {
       // tensor cores: S = Q K^T and O += P V as mma.sync m16n8k16 (bf16 in, f32
-      // out).  int8 values are exact in bf16.  Keys are permuted inside each 16 so
-      // that a lane's four V bytes of one dim come from one 32-bit word of each of
-      // four rows (a byte transpose in registers): logical key k of a 16-key step
-      // is key 4 (k % 8 / 2) + 2 (k / 8) + k % 2.
+      // out).  An int8 pool's keys are permuted inside each 16 so that a lane's
+      // four V bytes of one dim come from one 32-bit word of each of four rows (a
+      // byte transpose in registers): logical key k of a 16-key step is key
+      // 4 (k % 8 / 2) + 2 (k / 8) + k % 2.  A bf16 pool keeps the keys in order.
       __syncthreads();
       const int g = lane / 4, a = lane % 4;
       uint32_t qa[D / 16][4];
@@ -556,30 +371,34 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
           qa[kk][i] = r < live ? *reinterpret_cast<const uint32_t*>(qr) : 0u;
           qa[kk][2 + i] = r < live ? *reinterpret_cast<const uint32_t*>(qr + 8) : 0u;
         }
-      float o[Cf::kGroups][4][4];
+      // the accumulators: int8, [32-dim group][n-tile c][4] with column g of
+      // n-tile c dim 32 x + 4 g + c; bf16, [n-tile][4] with column g dim 8 n + g
+      constexpr int kTiles = kQ8 ? 4 * Cf::kGroups : D / 8;
+      float o[kTiles][4];
 #pragma unroll
-      for (int x = 0; x < Cf::kGroups; ++x)
+      for (int x = 0; x < kTiles; ++x)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[x][c][e] = 0.f;
+        for (int e = 0; e < 4; ++e) o[x][e] = 0.f;
       float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
       const int pos[2] = {pos_s[g], pos_s[g + 8]};
+      // the chunk's key of n-tile j's column c (a lane's B operand: c = g; its
+      // accumulators: c = 2 a + e)
+      auto key = [](int j, int c) {
+        return kQ8 ? 16 * (j / 2) + 4 * (c / 2) + 2 * (j % 2) + c % 2 : 8 * j + c;
+      };
       stream([&](const uint8_t* k_s, int kb) {
         const uint8_t* v_s = k_s + Cf::kVals;
-        const float* ks_s = reinterpret_cast<const float*>(v_s + Cf::kVals);
+        const float* ks_s = kscales(k_s);
         const float* vs_s = ks_s + KC;
         float sc[KC / 8][4];
 #pragma unroll
         for (int j = 0; j < KC / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-          const int key = 16 * (j / 2) + 4 * (g / 2) + 2 * (j % 2) + g % 2;
-          const uint8_t* kr = k_s + key * RS + 2 * a;
+          const uint8_t* kr = k_s + key(j, g) * RS + 2 * a * ES;
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk)
-            mma_bf16(sc[j], qa[kk], i8x2_to_bf16x2(*reinterpret_cast<const uint16_t*>(kr + 16 * kk)),
-                     i8x2_to_bf16x2(*reinterpret_cast<const uint16_t*>(kr + 16 * kk + 8)));
+            mma_bf16(sc[j], qa[kk], E::bf16x2(kr + 16 * kk * ES), E::bf16x2(kr + (16 * kk + 8) * ES));
         }
         // the K scale folds into the logit (exp2 domain), then the causal mask; the
         // online softmax of rows g and g + 8 over the four lanes of a quad
@@ -590,9 +409,9 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
           for (int j = 0; j < KC / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int kl = 16 * (j / 2) + 4 * a + 2 * (j % 2) + e;
+              const int kl = key(j, 2 * a + e);
               float& x = sc[j][2 * i + e];
-              x = kb + kl <= pos[i] ? x * (ks_s[kl] * kLog2e) : kNeg;
+              x = kb + kl <= pos[i] ? x * (kQ8 ? ks_s[kl] * kLog2e : kLog2e) : kNeg;
               mx = fmaxf(mx, x);
             }
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -604,68 +423,77 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
           for (int j = 0; j < KC / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int kl = 16 * (j / 2) + 4 * a + 2 * (j % 2) + e;
+              const int kl = key(j, 2 * a + e);
               float& x = sc[j][2 * i + e];
               const float p = kb + kl <= pos[i] ? exp2f(x - m_new) : 0.f;
               ps += p;
-              x = p * vs_s[kl];  // the V scale weighs the accumulation only
+              x = kQ8 ? p * vs_s[kl] : p;  // the V scale weighs the accumulation only
             }
           ps += __shfl_xor_sync(0xffffffffu, ps, 1);
           ps += __shfl_xor_sync(0xffffffffu, ps, 2);
           l[i] = l[i] * alpha + ps;
           m[i] = m_new;
 #pragma unroll
-          for (int x = 0; x < Cf::kGroups; ++x)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              o[x][c][2 * i] *= alpha;
-              o[x][c][2 * i + 1] *= alpha;
-            }
+          for (int x = 0; x < kTiles; ++x) {
+            o[x][2 * i] *= alpha;
+            o[x][2 * i + 1] *= alpha;
+          }
         }
-        // O += P V: P (times the V scale) rounded to bf16 as the A operand; V's
-        // B operand from four 32-bit words (rows 4a .. 4a + 3 of the 16-key step,
-        // dims 4g .. 4g + 3 of the 32-dim group) transposed byte-wise: the lane's
-        // column g of n-tile c is dim 32 x + 4 g + c
+        // O += P V: P (times the V scale) rounded to bf16 as the A operand
 #pragma unroll
         for (int kk = 0; kk < KC / 16; ++kk) {
           const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
                                   pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
                                   pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
                                   pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+          if constexpr (kQ8) {
+            // V's B operand from four 32-bit words (rows 4a .. 4a + 3 of the
+            // 16-key step, dims 4g .. 4g + 3 of the 32-dim group) transposed
+            // byte-wise
 #pragma unroll
-          for (int x = 0; x < Cf::kGroups; ++x) {
-            const uint8_t* vr = v_s + (16 * kk + 4 * a) * RS + 32 * x + 4 * g;
-            const uint32_t w0 = *reinterpret_cast<const uint32_t*>(vr);
-            const uint32_t w1 = *reinterpret_cast<const uint32_t*>(vr + RS);
-            const uint32_t w2 = *reinterpret_cast<const uint32_t*>(vr + 2 * RS);
-            const uint32_t w3 = *reinterpret_cast<const uint32_t*>(vr + 3 * RS);
-            const uint32_t x01 = __byte_perm(w0, w1, 0x5140), x23 = __byte_perm(w2, w3, 0x5140);
-            const uint32_t y01 = __byte_perm(w0, w1, 0x7362), y23 = __byte_perm(w2, w3, 0x7362);
-            const uint32_t t[4] = {__byte_perm(x01, x23, 0x5410), __byte_perm(x01, x23, 0x7632),
-                                   __byte_perm(y01, y23, 0x5410), __byte_perm(y01, y23, 0x7632)};
+            for (int x = 0; x < Cf::kGroups; ++x) {
+              const uint8_t* vr = v_s + (16 * kk + 4 * a) * RS + 32 * x + 4 * g;
+              const uint32_t w0 = *reinterpret_cast<const uint32_t*>(vr);
+              const uint32_t w1 = *reinterpret_cast<const uint32_t*>(vr + RS);
+              const uint32_t w2 = *reinterpret_cast<const uint32_t*>(vr + 2 * RS);
+              const uint32_t w3 = *reinterpret_cast<const uint32_t*>(vr + 3 * RS);
+              const uint32_t x01 = __byte_perm(w0, w1, 0x5140), x23 = __byte_perm(w2, w3, 0x5140);
+              const uint32_t y01 = __byte_perm(w0, w1, 0x7362), y23 = __byte_perm(w2, w3, 0x7362);
+              const uint32_t t[4] = {__byte_perm(x01, x23, 0x5410), __byte_perm(x01, x23, 0x7632),
+                                     __byte_perm(y01, y23, 0x5410), __byte_perm(y01, y23, 0x7632)};
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const uint32_t u = t[c] ^ 0x80808080u;
-              mma_bf16(o[x][c], pa, pack_exact(i8_to_f32<0>(u), i8_to_f32<1>(u)),
-                       pack_exact(i8_to_f32<2>(u), i8_to_f32<3>(u)));
+              for (int c = 0; c < 4; ++c) {
+                const uint32_t u = t[c] ^ 0x80808080u;
+                mma_bf16(o[4 * x + c], pa, pack_exact(i8_to_f32<0>(u), i8_to_f32<1>(u)),
+                         pack_exact(i8_to_f32<2>(u), i8_to_f32<3>(u)));
+              }
+            }
+          } else {
+            // V's B operand by ldmatrix.trans: matrices (keys 0-7 | 8-15 of the
+            // step) x (dims 16 n .. + 7 | 16 n + 8 .. + 15)
+            const int vrow = 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+            for (int n = 0; n < D / 16; ++n) {
+              uint32_t r[4];
+              ldmatrix_x4_trans(r, v_s + vrow * RS + (16 * n + 8 * (lane >> 4)) * 2);
+              mma_bf16(o[2 * n], pa, r[0], r[1]);
+              mma_bf16(o[2 * n + 1], pa, r[2], r[3]);
             }
           }
         }
       });
-      // rows g + 8 i, dims 32 x + 8 a + 4 (e % 2) + c
+      // rows g + 8 i: int8 dims 32 x + 8 a + 4 e + c, bf16 dims 8 n + 2 a + e
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = g + 8 * i;
         float* dst = red_acc + (warp * kRows + r) * D;
 #pragma unroll
-        for (int x = 0; x < Cf::kGroups; ++x)
+        for (int x = 0; x < kTiles; ++x)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int d = 32 * x + 8 * a + 4 * e + c;
-              if (d < D) dst[d] = o[x][c][2 * i + e];
-            }
+          for (int e = 0; e < 2; ++e) {
+            const int d = kQ8 ? 32 * (x / 4) + 8 * a + 4 * e + x % 4 : 8 * x + 2 * a + e;
+            if (d < D) dst[d] = o[x][2 * i + e];
+          }
         if (a == 0) {
           red_m[warp * kRows + r] = m[i];
           red_l[warp * kRows + r] = l[i];
@@ -697,8 +525,6 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
     }
     stream([&](const uint8_t* k_s, int kb) {
       const uint8_t* v_s = k_s + Cf::kVals;
-      const float* ks_s = reinterpret_cast<const float*>(v_s + Cf::kVals);
-      const float* vs_s = ks_s + KC;
       float s[NR][kKL];
 #pragma unroll
       for (int r = 0; r < NR; ++r)
@@ -708,24 +534,15 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
       for (int u = 0; u < kKL; ++u) {
         const uint8_t* kr = k_s + (lane + 32 * u) * RS;
 #pragma unroll
-        for (int x = 0; x < D / 16; ++x) {
-          const uint4 w = *reinterpret_cast<const uint4*>(kr + 16 * x);
-          const uint32_t ws[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
-                                  w.w ^ 0x80808080u};
-          float f[16];
-#pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            f[4 * h] = i8_to_f32<0>(ws[h]);
-            f[4 * h + 1] = i8_to_f32<1>(ws[h]);
-            f[4 * h + 2] = i8_to_f32<2>(ws[h]);
-            f[4 * h + 3] = i8_to_f32<3>(ws[h]);
-          }
+        for (int x = 0; x < D / E::kN; ++x) {
+          float f[E::kN];
+          E::widen(*reinterpret_cast<const uint4*>(kr + 16 * x), f);
 #pragma unroll
           for (int r = 0; r < NR; ++r) {
-            const float4* qv = reinterpret_cast<const float4*>(q_s + r * D + 16 * x);
+            const float4* qv = reinterpret_cast<const float4*>(q_s + r * D + E::kN * x);
             float acc_s = s[r][u];
 #pragma unroll
-            for (int h = 0; h < 4; ++h) {
+            for (int h = 0; h < E::kN / 4; ++h) {
               const float4 qq = qv[h];
               acc_s = fmaf(qq.x, f[4 * h], acc_s);
               acc_s = fmaf(qq.y, f[4 * h + 1], acc_s);
@@ -739,8 +556,8 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
       float kf[kKL], vf[kKL];
 #pragma unroll
       for (int u = 0; u < kKL; ++u) {
-        kf[u] = ks_s[lane + 32 * u] * kLog2e;
-        vf[u] = vs_s[lane + 32 * u];
+        kf[u] = kQ8 ? kscales(k_s)[lane + 32 * u] * kLog2e : kLog2e;
+        vf[u] = kQ8 ? kscales(k_s)[KC + lane + 32 * u] : 1.f;
       }
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
@@ -760,7 +577,8 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
         for (int u = 0; u < kKL; ++u) {
           const float e = kb + lane + 32 * u <= pos ? exp2f(s[r][u] - m_new) : 0.f;
           es += e;
-          p_w[r * KC + lane + 32 * u] = e * vf[u];  // the V scale weighs the accumulation only
+          // the V scale weighs the accumulation only
+          p_w[r * KC + lane + 32 * u] = kQ8 ? e * vf[u] : e;
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) es += __shfl_xor_sync(0xffffffffu, es, o);
@@ -778,11 +596,9 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
 #pragma unroll
           for (int j = 0; j < Cf::kLanePairs; ++j) {
             const int d = 2 * (lane + 32 * j);
-            const uint32_t u =
-                d < D ? *reinterpret_cast<const uint16_t*>(v_s + (t + tt) * RS + d) ^ 0x8080u
-                      : 0x8080u;
-            vv[tt][2 * j] = i8_to_f32<0>(u);
-            vv[tt][2 * j + 1] = i8_to_f32<1>(u);
+            const float2 x = d < D ? E::pair(v_s + (t + tt) * RS + d * ES) : make_float2(0.f, 0.f);
+            vv[tt][2 * j] = x.x;
+            vv[tt][2 * j + 1] = x.y;
           }
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
@@ -883,106 +699,88 @@ paged_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kpool,
   if (threadIdx.x == 0) counters[unit] = 0;  // ready for the next launch
 }
 
-template <typename T, int D, int PAGE>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-                   const int* table, const int* lengths, const int* q_lens, void* out,
-                   float* ws_acc, float2* ws_ml, int* counters, int B, int C, int h_q, int h_kv,
-                   int P, int n_splits, int pps, cudaStream_t stream) {
-  using Cf = Cfg<D, PAGE>;
-  auto kern = paged_q8_kernel<T, D, PAGE>;
+struct Args {
+  const void *q, *k, *v;
+  const float *ks, *vs;
+  const int *table, *lengths, *q_lens;
+  void* out;
+  float* ws_acc;
+  float2* ws_ml;
+  int* counters;
+  int B, C, h_q, h_kv, P, n_splits, pps;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV, int D, int PAGE>
+cudaError_t launch(const Args& a) {
+  using Cf = Cfg<KV, D, PAGE>;
+  auto kern = paged_kernel<T, KV, D, PAGE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(Cf::kSmem));
   if (err != cudaSuccess) return err;
-  const int tiles = (C * (h_q / h_kv) + kRows - 1) / kRows;
-  if (tiles > 65535 || B * h_kv > 65535) return cudaErrorInvalidValue;
-  dim3 grid(n_splits, tiles, B * h_kv);
-  kern<<<grid, kThreads, Cf::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), ks,
-      vs, table, lengths, q_lens, static_cast<T*>(out), ws_acc, ws_ml, counters, C, h_q, h_kv, P,
-      pps);
+  const int tiles = (a.C * (a.h_q / a.h_kv) + kRows - 1) / kRows;
+  if (tiles > 65535 || a.B * a.h_kv > 65535) return cudaErrorInvalidValue;
+  dim3 grid(a.n_splits, tiles, a.B * a.h_kv);
+  kern<<<grid, kThreads, Cf::kSmem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v), a.ks,
+      a.vs, a.table, a.lengths, a.q_lens, static_cast<T*>(a.out), a.ws_acc, a.ws_ml, a.counters,
+      a.C, a.h_q, a.h_kv, a.P, a.pps);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t by_page(int page, const void* q, const void* k, const void* v, const float* ks,
-                    const float* vs, const int* table, const int* lengths, const int* q_lens,
-                    void* out, float* wa, float2* wm, int* cnt, int B, int C, int h_q, int h_kv,
-                    int P, int n_splits, int pps, cudaStream_t st) {
+template <typename T, typename KV, int D>
+cudaError_t by_page(int page, const Args& a) {
   switch (page) {
-    case 32: return launch<T, D, 32>(q, k, v, ks, vs, table, lengths, q_lens, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
-    case 64: return launch<T, D, 64>(q, k, v, ks, vs, table, lengths, q_lens, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
-    case 128: return launch<T, D, 128>(q, k, v, ks, vs, table, lengths, q_lens, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
+    case 32: return launch<T, KV, D, 32>(a);
+    case 64: return launch<T, KV, D, 64>(a);
+    case 128: return launch<T, KV, D, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t by_dim(int d, int page, const void* q, const void* k, const void* v, const float* ks,
-                   const float* vs, const int* table, const int* lengths, const int* q_lens,
-                   void* out, float* wa, float2* wm, int* cnt, int B, int C, int h_q, int h_kv,
-                   int P, int n_splits, int pps, cudaStream_t st) {
+template <typename T, typename KV>
+cudaError_t by_dim(int d, int page, const Args& a) {
   switch (d) {
-    case 64: return by_page<T, 64>(page, q, k, v, ks, vs, table, lengths, q_lens, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
-    case 80: return by_page<T, 80>(page, q, k, v, ks, vs, table, lengths, q_lens, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
-    case 96: return by_page<T, 96>(page, q, k, v, ks, vs, table, lengths, q_lens, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
-    case 128: return by_page<T, 128>(page, q, k, v, ks, vs, table, lengths, q_lens, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
+    case 64: return by_page<T, KV, 64>(page, a);
+    case 80: return by_page<T, KV, 80>(page, a);
+    case 96: return by_page<T, KV, 96>(page, a);
+    case 128: return by_page<T, KV, 128>(page, a);
     default: return cudaErrorInvalidValue;
   }
 }
-
-}  // namespace q8
 
 }  // namespace
 
-// C entries bound with ctypes.  dtype: 0 = float32, 1 = bfloat16 (q and out,
-// and the pool of the first entry).  The _q8 entry takes the int8 pool with
-// its f32 scales, the split plan (n_splits splits of pps pages) and, with
-// more than one split, a workspace of f32 [units, n_splits, 16, d] and
-// float2 [units, n_splits, 16] partials and int32 [units] counters, zero
-// before the first launch (the kernel leaves them zero), units = B * h_kv *
-// ceil(C * h_q / h_kv / 16).  Launches that share the counters must be
-// ordered (one stream; the wrapper keeps a buffer per stream).  Each returns the cudaError_t of the launch (0 on
-// success); it does not synchronise.
-extern "C" int prt_paged_ragged_attention(const void* q, const void* k, const void* v,
-                                          const void* table, const void* lengths,
-                                          const void* q_lens, void* out, int B, int C, int h_q,
-                                          int h_kv, int d, int page, int P, int dtype,
+// C entry bound with ctypes.  dtype: 0 = float32, 1 = bfloat16 (q and out).
+// kv_int8: 0 = a pool in q's dtype (ks, vs unused), 1 = an int8 pool with its
+// f32 scales.  The split plan: n_splits splits of pps pages; with more than one
+// split, a workspace of f32 [units, n_splits, 16, d] and float2 [units,
+// n_splits, 16] partials and int32 [units] counters, zero before the first
+// launch (the kernel leaves them zero), units = B * h_kv * ceil(C * h_q / h_kv
+// / 16).  Launches that share the counters must be ordered (one stream; the
+// wrapper keeps a buffer per stream).  Returns the cudaError_t of the launch
+// (0 on success); it does not synchronise.
+extern "C" int prt_paged_ragged_attention(const void* q, const void* k, const void* ks,
+                                          const void* v, const void* vs, const void* table,
+                                          const void* lengths, const void* q_lens, void* out,
+                                          void* ws_acc, void* ws_ml, void* counters, int B,
+                                          int C, int h_q, int h_kv, int d, int page, int P,
+                                          int dtype, int kv_int8, int n_splits, int pps,
                                           void* stream) {
-  if (B <= 0 || C <= 0 || h_kv <= 0 || h_q % h_kv != 0) return cudaErrorInvalidValue;
-  const int* tb = static_cast<const int*>(table);
-  const int* ln = static_cast<const int*>(lengths);
-  const int* qlp = static_cast<const int*>(q_lens);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dtype<float>(d, page, q, k, v, tb, ln, qlp, out, B, C, h_q, h_kv, P, st);
-  if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(d, page, q, k, v, tb, ln, qlp, out, B, C, h_q, h_kv, P, st);
-  return cudaErrorInvalidValue;
-}
-
-extern "C" int prt_paged_ragged_attention_q8(const void* q, const void* k, const void* ks,
-                                             const void* v, const void* vs, const void* table,
-                                             const void* lengths, const void* q_lens, void* out,
-                                             void* ws_acc, void* ws_ml, void* counters, int B,
-                                             int C, int h_q, int h_kv, int d, int page, int P,
-                                             int dtype, int n_splits, int pps,
-                                             void* stream) {
   if (B <= 0 || C <= 0 || h_kv <= 0 || h_q % h_kv != 0 || P <= 0 || n_splits <= 0 || pps <= 0 ||
+      (kv_int8 && (ks == nullptr || vs == nullptr)) ||
       (n_splits > 1 && (ws_acc == nullptr || ws_ml == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
-  const float* ksp = static_cast<const float*>(ks);
-  const float* vsp = static_cast<const float*>(vs);
-  const int* tb = static_cast<const int*>(table);
-  const int* ln = static_cast<const int*>(lengths);
-  const int* qlp = static_cast<const int*>(q_lens);
-  float* wa = static_cast<float*>(ws_acc);
-  float2* wm = static_cast<float2*>(ws_ml);
-  int* cnt = static_cast<int*>(counters);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, static_cast<const float*>(ks), static_cast<const float*>(vs),
+               static_cast<const int*>(table), static_cast<const int*>(lengths),
+               static_cast<const int*>(q_lens), out, static_cast<float*>(ws_acc),
+               static_cast<float2*>(ws_ml), static_cast<int*>(counters), B, C, h_q, h_kv, P,
+               n_splits, pps, static_cast<cudaStream_t>(stream)};
   if (dtype == 0)
-    return q8::by_dim<float>(d, page, q, k, v, ksp, vsp, tb, ln, qlp, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
+    return kv_int8 ? by_dim<float, int8_t>(d, page, a) : by_dim<float, float>(d, page, a);
   if (dtype == 1)
-    return q8::by_dim<__nv_bfloat16>(d, page, q, k, v, ksp, vsp, tb, ln, qlp, out, wa, wm, cnt, B, C, h_q, h_kv, P, n_splits, pps, st);
+    return kv_int8 ? by_dim<__nv_bfloat16, int8_t>(d, page, a)
+                   : by_dim<__nv_bfloat16, __nv_bfloat16>(d, page, a);
   return cudaErrorInvalidValue;
 }
 

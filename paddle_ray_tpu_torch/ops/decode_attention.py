@@ -39,7 +39,7 @@ __all__ = ["fused_decode_attention", "fused_decode_attention_plain",
 # only the rows up to pos)
 DECODE_BLOCK_T = 256
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 80, 96, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -47,11 +47,12 @@ __all__ = ["fused_dropout_add_layernorm", "dal_forward", "dal_backward",
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = 0xFFFFFFFF
-# the widest row the kernels stage in shared memory (16 bytes a column in
-# the backward: 128 KiB)
+# the widest row the kernels take: the forward stages a row in shared
+# memory, the backward holds it in the registers of at most 8 warps (and w
+# and the block's dweight / dbias in shared memory, 12 bytes a column)
 KERNEL_MAX_H = 8192
-# the backward's rows are split over at most this many blocks, whose
-# partial dweight / dbias a second launch sums in a fixed order
+# the backward's rows are split over at most this many blocks (whatever the
+# card), whose partial dweight / dbias a second launch sums in a fixed order
 _BWD_BLOCKS = 256
 
 
@@ -185,7 +186,7 @@ def _kernel_lib() -> ctypes.CDLL:
                       ctypes.c_float)
         lib.prt_dal_fwd.argtypes = ([p] * 8 + [i] * 2 + [u, u, f, i, f]
                                     + [i] * 2 + [p])
-        lib.prt_dal_bwd.argtypes = ([p] * 11 + [i] * 3 + [u, u, f, i]
+        lib.prt_dal_bwd.argtypes = ([p] * 11 + [i] * 2 + [u, u, f, i]
                                     + [i] * 2 + [p])
         lib.prt_dal_fwd.restype = ctypes.c_int
         lib.prt_dal_bwd.restype = ctypes.c_int
@@ -248,9 +249,10 @@ def dal_backward(h: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                             torch.Tensor]:
     """Backward on ``[rows, H]``: ``(dx, dres, dweight, dbias)`` as
     :func:`dal_backward_plain` gives them.  CUDA tensors launch
-    ``prt_dal_bwd`` (rows split over at most 256 blocks, then a
-    fixed-order sum of their partial dweight / dbias); CPU tensors run the
-    plain version."""
+    ``prt_dal_bwd`` (a row in the registers of one to eight warps, rows
+    strided over at most 256 blocks, then a fixed-order sum of their
+    partial dweight / dbias: the same bits on every call and card); CPU
+    tensors run the plain version."""
     thresh, scale = _drop_consts(p)
     if _device_kind(h) == "cpu":
         return dal_backward_plain(h, mean, rstd, weight, dy, dh2, seed, p=p,
@@ -261,19 +263,17 @@ def dal_backward(h: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
         named.append(("dh2", dh2))
     _check_cuda(named)
     rows, n = h.shape
-    per_block = -(-rows // _BWD_BLOCKS)
-    blocks = -(-rows // per_block)
     f32 = dict(dtype=torch.float32, device=h.device)
     dx = torch.empty_like(h)
     dres = torch.empty_like(h)
-    parts = torch.empty(2, blocks, n, **f32)
+    parts = torch.empty(2, min(_BWD_BLOCKS, rows), n, **f32)
     dw_db = torch.empty(2, n, **f32)
     _launch("fused_dropout_add_layernorm_bwd", "prt_dal_bwd", h.device,
             h.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             weight.data_ptr(), dy.data_ptr(),
             None if dh2 is None else dh2.data_ptr(), dx.data_ptr(),
             dres.data_ptr(), parts.data_ptr(), dw_db[0].data_ptr(),
-            dw_db[1].data_ptr(), rows, n, per_block, int(seed) & _MASK,
+            dw_db[1].data_ptr(), rows, n, int(seed) & _MASK,
             thresh, scale, int(training and p > 0.0),
             _KERNEL_DTYPES[h.dtype], _KERNEL_DTYPES[weight.dtype])
     dal_backward.launches += 1

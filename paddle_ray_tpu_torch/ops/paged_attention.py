@@ -33,23 +33,29 @@ from . import _build
 
 __all__ = ["paged_ragged_attention", "paged_ragged_attention_plain",
            "paged_ragged_attention_split_plain", "paged_decode_attention",
-           "q8_plan", "split_plan", "split_ranges", "DEFAULT_PAGE_SIZE"]
+           "chunk_keys", "kernel_plan", "split_plan", "split_ranges",
+           "DEFAULT_PAGE_SIZE"]
 
 # default pool block size; serving picks it up, tests may shrink it
 DEFAULT_PAGE_SIZE = 64
 
-# what the CUDA kernels are instantiated for: head dims over a pool in q's
-# dtype, over an int8 pool, and page sizes
-KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_HEAD_DIMS_Q8 = (64, 80, 96, 128)
+# what the CUDA kernel is instantiated for, over either pool: head dims and
+# page sizes
+KERNEL_HEAD_DIMS = (64, 80, 96, 128)
 KERNEL_PAGE_SIZES = (32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the int8 kernel's blocks: 16 (row, group member) pairs, 4 warps that take
-# chunks of up to 64 keys of the block's pages in turn
-Q8_TILE_PAIRS = 16
-Q8_WARPS = 4
-Q8_CHUNK = 64
+# the kernel's blocks: 16 (row, group member) pairs, 4 warps that take
+# chunks of the block's pages in turn
+TILE_PAIRS = 16
+WARPS = 4
+
+
+def chunk_keys(page: int, int8_pool: bool) -> int:
+    """Keys of the chunk a warp streams at a time: 64 of an int8 pool, 32
+    of one in q's dtype (8 KB of K and V at head dim 64 either way), at
+    most a page (the CUDA source's ``Cfg::kKC``)."""
+    return min(page, 64 if int8_pool else 32)
 
 
 def _unpack(q: torch.Tensor, pool: Tuple):
@@ -136,9 +142,11 @@ def paged_ragged_attention_plain(q: torch.Tensor, pool: Tuple,
 
 
 def split_plan(page: int, n_blocks: int, units_per_slot: int,
-               sm_count: int, lengths: Sequence[int]) -> Tuple[int, int]:
-    """``(n_splits, pages_per_split)`` of the int8 kernel's split-K from
-    the slots' lengths on the host.  A slot's live pages are ``min(ceil(
+               sm_count: int, lengths: Sequence[int],
+               chunk: int) -> Tuple[int, int]:
+    """``(n_splits, pages_per_split)`` of the kernel's split-K from the
+    slots' lengths on the host, for chunks of ``chunk`` keys
+    (:func:`chunk_keys`).  A slot's live pages are ``min(ceil(
     length / page), n_blocks)``; the call's work is their sum times
     ``units_per_slot`` (kv heads times pair tiles).  A split takes the
     work's share of one SM, but at least a chunk for every warp, and the
@@ -150,8 +158,8 @@ def split_plan(page: int, n_blocks: int, units_per_slot: int,
     longest = max(pages, default=0)
     if longest <= 0:
         return 1, max(1, n_blocks)
-    per_page = max(1, page // Q8_CHUNK)             # chunks a page
-    min_pages = -(-Q8_WARPS // per_page)
+    per_page = max(1, page // chunk)                # chunks a page
+    min_pages = -(-WARPS // per_page)
     work = sum(pages) * units_per_slot
     pps = max(min_pages, -(-work // max(1, sm_count)))
     n = -(-longest // pps)
@@ -160,7 +168,7 @@ def split_plan(page: int, n_blocks: int, units_per_slot: int,
 
 def split_ranges(lengths, q_lens, page: int, n_blocks: int, n_splits: int,
                  pages_per_split: int) -> list:
-    """The ``[first, end)`` page runs of each slot's splits, as the int8
+    """The ``[first, end)`` page runs of each slot's splits, as the
     kernel walks them: a live slot (``lengths > 0`` and ``q_lens > 0``)
     holds ``min(ceil(lengths / page), n_blocks)`` live pages -- the last
     one its last query row sees -- cut into runs of ``pages_per_split``,
@@ -181,7 +189,7 @@ def paged_ragged_attention_split_plain(q: torch.Tensor, pool: Tuple,
                                        q_lens: torch.Tensor, *, scale: float,
                                        n_splits: int, pages_per_split: int
                                        ) -> torch.Tensor:
-    """Plain PyTorch version of the int8 kernel's split-K: each run of
+    """Plain PyTorch version of the kernel's split-K: each run of
     ``pages_per_split`` pages (``n_splits`` runs, the last one to the end
     of the table) gives float32 ``(m, l, acc)`` per row as
     :func:`paged_ragged_attention_plain` computes them over its keys alone
@@ -229,10 +237,8 @@ def _check_cuda(q, k, v, k_s, v_s, page_table, lengths, q_lens) -> None:
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     d, page = q.shape[-1], k.shape[1]
-    dims = KERNEL_HEAD_DIMS if k_s is None else KERNEL_HEAD_DIMS_Q8
-    if d not in dims:
-        raise ValueError(f"kernel head_dim {d} not in {dims}"
-                         + ("" if k_s is None else " (int8 pool)"))
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel head_dim {d} not in {KERNEL_HEAD_DIMS}")
     if page not in KERNEL_PAGE_SIZES:
         raise ValueError(f"kernel page size {page} not in {KERNEL_PAGE_SIZES}")
     b = q.shape[0]
@@ -253,13 +259,9 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     fn = lib.prt_paged_ragged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        fn_q8 = lib.prt_paged_ragged_attention_q8
-        fn_q8.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
-                          + [ctypes.c_void_p])
-        fn_q8.restype = ctypes.c_int
         lib.prt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.prt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -277,7 +279,7 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The int8 kernel's split counters for launches on ``stream`` of
+    """The kernel's split counters for launches on ``stream`` of
     ``dev``: zero, and left zero by every launch that runs to its end, so
     one buffer serves every call on that stream; another stream gets its
     own, as launches that share counters must not overlap."""
@@ -289,47 +291,51 @@ def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _tiles(q: torch.Tensor, h_kv: int) -> int:
-    """The int8 kernel's tiles of ``Q8_TILE_PAIRS`` (row, group member)
-    pairs per slot and kv head."""
+    """The kernel's tiles of ``TILE_PAIRS`` (row, group member) pairs per
+    slot and kv head."""
     _, chunk, h_q, _ = q.shape
-    return -(-chunk * (h_q // h_kv) // Q8_TILE_PAIRS)
+    return -(-chunk * (h_q // h_kv) // TILE_PAIRS)
 
 
-def q8_plan(q: torch.Tensor, pool: Tuple, page_table: torch.Tensor,
-            host_lengths: Optional[Sequence[int]] = None) -> Tuple[int, int]:
+def kernel_plan(q: torch.Tensor, pool: Tuple, page_table: torch.Tensor,
+                host_lengths: Optional[Sequence[int]] = None
+                ) -> Tuple[int, int]:
     """``(n_splits, pages_per_split)`` with which
-    :func:`paged_ragged_attention` launches the int8 kernel for these
-    CUDA inputs: :func:`split_plan` over the call's pair tiles and the
-    card's SM count; without ``host_lengths`` every slot counts at the
-    table's width."""
+    :func:`paged_ragged_attention` launches the kernel for these CUDA
+    inputs: :func:`split_plan` over the call's pair tiles, the pool's
+    chunk and the card's SM count; without ``host_lengths`` every slot
+    counts at the table's width."""
     _, page, h_kv, _ = pool[0].shape
     n_blocks = page_table.shape[1]
     lengths = ([n_blocks * page] * q.shape[0] if host_lengths is None
                else host_lengths)
     return split_plan(page, n_blocks, h_kv * _tiles(q, h_kv),
-                      _sm_count(q.device), lengths)
+                      _sm_count(q.device), lengths,
+                      chunk_keys(page, pool[0].dtype == torch.int8))
 
 
-def _launch_q8(lib, qs, pool, table, lengths, q_lens, out, dims,
-               host_lengths) -> int:
-    """The int8 kernel with its split plan and workspace."""
-    k, k_s, v, v_s = pool
-    b, h_kv, d, stream = dims[0], dims[3], dims[4], dims[-1]
+def _launch(lib, qs, k, v, k_s, v_s, pool, table, lengths, q_lens, out,
+            host_lengths) -> int:
+    """The kernel with its split plan and workspace."""
+    b, chunk, h_q, d = qs.shape
+    _, page, h_kv, _ = k.shape
+    stream = torch.cuda.current_stream(qs.device).cuda_stream
     units = b * h_kv * _tiles(qs, h_kv)
-    n_splits, pps = q8_plan(qs, pool, table, host_lengths)
+    n_splits, pps = kernel_plan(qs, pool, table, host_lengths)
     ws_acc = ws_ml = counters = None
     if n_splits > 1:
-        ws_acc = torch.empty(units * n_splits * Q8_TILE_PAIRS * d,
+        ws_acc = torch.empty(units * n_splits * TILE_PAIRS * d,
                              dtype=torch.float32, device=qs.device)
-        ws_ml = torch.empty(units * n_splits * Q8_TILE_PAIRS * 2,
+        ws_ml = torch.empty(units * n_splits * TILE_PAIRS * 2,
                             dtype=torch.float32, device=qs.device)
         counters = _counters(qs.device, stream, units)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
-    return lib.prt_paged_ragged_attention_q8(
-        qs.data_ptr(), k.data_ptr(), k_s.data_ptr(), v.data_ptr(),
-        v_s.data_ptr(), table.data_ptr(), lengths.data_ptr(),
-        q_lens.data_ptr(), out.data_ptr(), ptr(ws_acc), ptr(ws_ml),
-        ptr(counters), *dims[:-1], n_splits, pps, stream)
+    return lib.prt_paged_ragged_attention(
+        qs.data_ptr(), k.data_ptr(), ptr(k_s), v.data_ptr(), ptr(v_s),
+        table.data_ptr(), lengths.data_ptr(), q_lens.data_ptr(),
+        out.data_ptr(), ptr(ws_acc), ptr(ws_ml), ptr(counters), b, chunk,
+        h_q, h_kv, d, page, table.shape[1], _KERNEL_DTYPES[qs.dtype],
+        int(k_s is not None), n_splits, pps, stream)
 
 
 def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
@@ -348,14 +354,14 @@ def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
     page); lengths: ``[B]`` int32 valid tokens per sequence including the
     chunk's own already-appended rows; q_lens: ``[B]`` int32 valid query
     rows (0 = dead slot; dead slots and pad rows output zeros).
-    host_lengths: optional host copy of ``lengths``, which sizes the int8
+    host_lengths: optional host copy of ``lengths``, which sizes the
     kernel's split-K (:func:`split_plan`) and never changes the result.
     Returns ``[B, chunk, h_q, d]`` in q's dtype.
 
-    On a CUDA device this launches the CUDA kernel and counts the launch
-    in ``paged_ragged_attention.launches`` (``.launches_q8`` for an int8
-    pool: split-K over pages, :func:`q8_plan`); on the CPU it runs
-    :func:`paged_ragged_attention_plain`.
+    On a CUDA device this launches the CUDA kernel (split-K over pages,
+    :func:`kernel_plan`) and counts the launch in
+    ``paged_ragged_attention.launches`` (``.launches_q8`` for an int8
+    pool); on the CPU it runs :func:`paged_ragged_attention_plain`.
     """
     k, v, k_s, v_s = _unpack(q, pool)
     if q.device.type == "cpu":
@@ -364,25 +370,13 @@ def paged_ragged_attention(q: torch.Tensor, pool: Tuple,
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention for device {q.device}")
     _check_cuda(q, k, v, k_s, v_s, page_table, lengths, q_lens)
-    b, chunk, h_q, d = q.shape
-    _, page, h_kv, _ = k.shape
     qs = _prescale(q, scale).contiguous()
-    table = page_table.contiguous()
-    lengths = lengths.contiguous()
-    q_lens = q_lens.contiguous()
     out = torch.empty_like(qs)
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        dims = (b, chunk, h_q, h_kv, d, page, table.shape[1],
-                _KERNEL_DTYPES[q.dtype], stream)
-        if k_s is None:
-            err = lib.prt_paged_ragged_attention(
-                qs.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
-                lengths.data_ptr(), q_lens.data_ptr(), out.data_ptr(), *dims)
-        else:
-            err = _launch_q8(lib, qs, pool, table, lengths, q_lens, out,
-                             dims, host_lengths)
+        err = _launch(lib, qs, k, v, k_s, v_s, pool, page_table.contiguous(),
+                      lengths.contiguous(), q_lens.contiguous(), out,
+                      host_lengths)
     if err != 0:
         raise RuntimeError(
             f"paged_ragged_attention kernel launch failed: cudaError {err} "

@@ -4,7 +4,9 @@ The same numpy inputs go through ``paddle_ray_tpu``'s Pallas kernels (in
 interpret mode on the CPU, two T blocks of ``DECODE_BLOCK_T`` rows) and
 ``paddle_ray_tpu_torch``'s wrapper, which runs the plain version of the
 cache's kind for CPU tensors: pos at the first row, at both edges of the
-first block (the second block then fully masked) and at the last row.
+first block (the second block then fully masked) and at the last row; at
+head dims 80 and 96 (gpt3-2.7b's and gpt3-760m's) for the bf16 and the int8
+cache.
 Tolerances: float32 1e-5 (summation order differs); bfloat16 2e-2 (the
 frameworks round the bfloat16 intermediates at different places)."""
 import numpy as np
@@ -16,6 +18,7 @@ from paddle_ray_tpu.models.generation import _kv_quant as jax_kv_quant
 from paddle_ray_tpu.ops.decode_attention import (
     DECODE_BLOCK_T as JAX_BLOCK_T, fused_decode_attention as jax_fused)
 from paddle_ray_tpu_torch.models.generation import _kv_quant
+from paddle_ray_tpu_torch.ops import decode_attention as da
 from paddle_ray_tpu_torch.ops.decode_attention import (
     DECODE_BLOCK_T, fused_decode_attention, fused_decode_attention_plain,
     fused_decode_attention_q8_plain)
@@ -28,11 +31,11 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
-def _inputs(seed):
+def _inputs(seed, d=D):
     r = np.random.RandomState(seed)
-    return (r.randn(B, H, 1, D).astype(np.float32),
-            r.randn(B, H, T, D).astype(np.float32),
-            r.randn(B, H, T, D).astype(np.float32))
+    return (r.randn(B, H, 1, d).astype(np.float32),
+            r.randn(B, H, T, d).astype(np.float32),
+            r.randn(B, H, T, d).astype(np.float32))
 
 
 def test_block_constant_matches_jax():
@@ -78,6 +81,53 @@ def test_q8_matches_jax(pos):
     got = fused_decode_attention(torch.from_numpy(q), (kq, ks, vq, vs), pos,
                                  scale=SCALE)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("pos", [0, DECODE_BLOCK_T + 44])
+@pytest.mark.parametrize("kind", ["bf16", "q8"])
+@pytest.mark.parametrize("d", [80, 96])
+def test_head_dims_80_96_match_jax(d, kind, pos):
+    """The plain versions at head dims 80 and 96 against the Pallas
+    ``_kernel_bf16`` (a bf16 cache) and ``_kernel_q8`` (an int8 cache with
+    bf16 queries), in interpret mode."""
+    q, k, v = _inputs(60 + d + pos, d)
+    scale = d ** -0.5
+    qj = jnp.asarray(q, jnp.bfloat16)
+    qt = torch.from_numpy(q).to(torch.bfloat16)
+    if kind == "bf16":
+        want = jax_fused(qj, (jnp.asarray(k, jnp.bfloat16),
+                              jnp.asarray(v, jnp.bfloat16)), pos, scale=scale)
+        t = lambda a: torch.from_numpy(a).to(torch.bfloat16)   # noqa: E731
+        got = fused_decode_attention(qt, (t(k), t(v)), pos, scale=scale)
+    else:
+        jk, jv = jax_kv_quant(jnp.asarray(k)), jax_kv_quant(jnp.asarray(v))
+        want = jax_fused(qj, (*jk, *jv), pos, scale=scale)
+        kq, ks = _kv_quant(torch.from_numpy(k))
+        vq, vs = _kv_quant(torch.from_numpy(v))
+        got = fused_decode_attention(qt, (kq, ks, vq, vs), pos, scale=scale)
+    assert got.shape == (B, H, 1, d) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_check_cuda_head_dims(d, q8):
+    """The CUDA kernel takes head dims 64, 80, 96 and 128 over a bf16 and
+    an int8 cache (checked before any launch); another head dim raises."""
+    def args(dim):
+        q = torch.zeros(B, H, 1, dim, dtype=torch.bfloat16)
+        if q8:
+            kq = torch.zeros(B, H, T, dim, dtype=torch.int8)
+            ks = torch.ones(B, H, T, 1)
+            return q, (kq, ks, kq, ks)
+        k = torch.zeros(B, H, T, dim, dtype=torch.bfloat16)
+        return q, (k, k)
+    assert da.KERNEL_HEAD_DIMS == (64, 80, 96, 128)
+    da._check_cuda(*args(d))
+    with pytest.raises(ValueError, match=r"\(64, 80, 96, 128\)"):
+        da._check_cuda(*args(112 if d != 128 else 32))
 
 
 def test_rows_past_pos_change_nothing():

@@ -203,6 +203,37 @@ def test_plain_versions_match_the_pallas_kernels(p, training):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("hdim", [768, 100])
+@pytest.mark.parametrize("p,training", [(0.1, True), (0.0, True),
+                                        (0.1, False)])
+def test_plain_backward_matches_the_pallas_kernel_at_other_widths(
+        hdim, p, training):
+    """``dal_backward_plain`` against ``_dal_call_bwd`` (the Pallas
+    ``_dal_bwd_kernel`` in interpret mode) at BERT-base's width 768 and at
+    a width that is not a whole number of 16-byte vectors (100: the CUDA
+    kernel's element loads), from the Pallas forward's h and statistics:
+    dx, dres, dw, db."""
+    x, res, w, b, dy, dh2 = _inputs(48, hdim, seed=hdim)
+    seed = 24681357
+    jseed = jnp.asarray([seed], jnp.int32)
+    j = [jnp.asarray(a) for a in (x, res, w, b)]
+    _, h, mu, rs = jax_fused._dal_call_fwd(jseed, *j, p, 1e-5, training, 16,
+                                           True)
+    want = jax_fused._dal_call_bwd(
+        jseed, j[0], j[1], j[2], h, mu, rs, jnp.asarray(dy),
+        jnp.asarray(dh2), p, 1e-5, training, 16, True)
+    got = fused.dal_backward_plain(
+        torch.from_numpy(np.array(h)), torch.from_numpy(np.array(mu)[:, 0]),
+        torch.from_numpy(np.array(rs)[:, 0]), torch.from_numpy(w),
+        torch.from_numpy(dy), torch.from_numpy(dh2), seed, p=p,
+        training=training)
+    for name, g, wv in zip(("dx", "dres", "dw", "db"), got,
+                           (want[0], want[1], np.asarray(want[2])[0],
+                            np.asarray(want[3])[0])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wv), rtol=1e-5,
+                                   atol=1e-4, err_msg=name)
+
+
 def test_mask_is_the_jax_mask_and_h_is_unused():
     """With x = 1 and residual = 0, h is the scaled keep mask: the port's
     zeros sit where JAX's do; with h unused, its cotangent stays None and

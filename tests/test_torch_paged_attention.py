@@ -5,9 +5,10 @@ interpret mode on the CPU) and ``paddle_ray_tpu_torch``'s wrapper, which
 runs its plain PyTorch version for CPU tensors: GQA ratios 1/2/4, pages
 shuffled across the pool, mixed chunk widths with dead slots, lengths at
 page boundaries, a poisoned null page; and the int8 pool ``(k_q, k_s, v_q,
-v_s)`` against the JAX ``_kernel_q8``, at head dims 32, 80 and 96, and its
-split-K plan (the chooser's page runs, the split-then-merge plain version
-against the unsplit one within 1e-6).  Tolerances: float32 1e-5
+v_s)`` against the JAX ``_kernel_q8``, at head dims 32, 80 and 96 (a pool in
+q's dtype against ``_kernel`` at 80 and 96 too), and the split-K plan both
+pools launch with (the chooser's page runs for each pool's chunk, the
+split-then-merge plain version against the unsplit one within 1e-6).  Tolerances: float32 1e-5
 (summation order differs); bfloat16 inputs 2e-2 (the two frameworks round
 the bfloat16 intermediates at different places)."""
 import numpy as np
@@ -19,7 +20,7 @@ from paddle_ray_tpu.ops.paged_attention import (
     paged_decode_attention as jax_decode, paged_ragged_attention as jax_ragged)
 from paddle_ray_tpu_torch.ops import paged_attention as pa
 from paddle_ray_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_ragged_attention,
+    chunk_keys, paged_decode_attention, paged_ragged_attention,
     paged_ragged_attention_plain, paged_ragged_attention_split_plain,
     split_plan, split_ranges)
 
@@ -238,27 +239,56 @@ def test_int8_pool_head_dims_80_96_match_jax(d, dtype, group):
         assert (got[b, n:] == 0).all(), f"pad rows of slot {b}"
 
 
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [80, 96])
+def test_pool_in_q_dtype_head_dims_80_96_match_jax(d, dtype, group):
+    """gpt3-2.7b's head dim 80 and gpt3-760m's 96 over a pool in q's
+    dtype: the plain version against the Pallas ``_kernel`` (interpret
+    mode), GQA 1/2/4, float32 and bfloat16, the null page poisoned."""
+    args = _inputs(130 + d + group, 6, 8, group, 2, 4, MIXED_Q_LENS,
+                   MIXED_LENGTHS, poison=1e4, d=d)
+    q, k, v, table, ln, ql = args
+    t = torch.from_numpy
+    tdt, jdt, tol = ((torch.float32, jnp.float32, F32_TOL)
+                     if dtype == "float32"
+                     else (torch.bfloat16, jnp.bfloat16, BF16_TOL))
+    got = paged_ragged_attention(t(q).to(tdt), (t(k).to(tdt), t(v).to(tdt)),
+                                 t(table), t(ln), t(ql), scale=d ** -0.5)
+    assert got.dtype == tdt
+    want = jax_ragged(jnp.asarray(q, jdt), (jnp.asarray(k, jdt),
+                                            jnp.asarray(v, jdt)),
+                      jnp.asarray(table), jnp.asarray(ln), jnp.asarray(ql),
+                      scale=d ** -0.5)
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                               **tol)
+    for b, n in enumerate(MIXED_Q_LENS):
+        assert (got[b, n:] == 0).all(), f"pad rows of slot {b}"
+
+
 @pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("d", [64, 80, 96, 128])
 def test_check_cuda_head_dims(d, q8):
-    """The int8-pool kernel takes head dims 64, 80, 96 and 128; the kernel
-    over a pool in q's dtype still only 64 and 128 (checked before any
-    launch)."""
-    q = torch.zeros(2, 1, 4, d, dtype=torch.bfloat16)
+    """The kernel takes head dims 64, 80, 96 and 128 over either pool
+    (checked before any launch); another head dim raises."""
     table = torch.zeros(2, 3, dtype=torch.int32)
     ln = torch.ones(2, dtype=torch.int32)
-    if q8:
-        k = torch.zeros(7, 64, 4, d, dtype=torch.int8)
-        ks = torch.ones(7, 64, 4)
-        args = (q, k, k, ks, ks, table, ln, ln)
-    else:
-        k = torch.zeros(7, 64, 4, d, dtype=torch.bfloat16)
-        args = (q, k, k, None, None, table, ln, ln)
-    if q8 or d in (64, 128):
-        pa._check_cuda(*args)
-    else:
-        with pytest.raises(ValueError, match=r"\(64, 128\)"):
-            pa._check_cuda(*args)
+
+    def args(dim):
+        q = torch.zeros(2, 1, 4, dim, dtype=torch.bfloat16)
+        if q8:
+            k = torch.zeros(7, 64, 4, dim, dtype=torch.int8)
+            ks = torch.ones(7, 64, 4)
+            return (q, k, k, ks, ks, table, ln, ln)
+        k = torch.zeros(7, 64, 4, dim, dtype=torch.bfloat16)
+        return (q, k, k, None, None, table, ln, ln)
+    assert pa.KERNEL_HEAD_DIMS == (64, 80, 96, 128)
+    pa._check_cuda(*args(d))
+    with pytest.raises(ValueError, match=r"\(64, 80, 96, 128\)"):
+        pa._check_cuda(*args(d + 16 if d == 128 else d - 16 if d == 64
+                             else 112))
 
 
 # (lengths, q_lens, page, table width): a long ragged decode with page
@@ -291,8 +321,9 @@ def test_split_plan_covers_every_live_page_once(case, sm_count,
     than the longest slot's pages; a plan made from stale (shorter)
     lengths still covers every page (the last run takes the rest)."""
     lengths, q_lens, page, n_blocks = SPLIT_CASES[case]
+    chunk = chunk_keys(page, True)
     n_splits, pps = split_plan(page, n_blocks, units_per_slot, sm_count,
-                               lengths)
+                               lengths, chunk)
     longest = max([min(-(-n // page), n_blocks) for n in lengths], default=0)
     assert n_splits >= 1 and pps >= 1
     assert n_splits <= max(1, longest)
@@ -300,7 +331,7 @@ def test_split_plan_covers_every_live_page_once(case, sm_count,
     _check_runs(split_ranges(lengths, q_lens, page, n_blocks, n_splits, pps),
                 lengths, q_lens, page, n_blocks, n_splits)
     stale = split_plan(page, n_blocks, units_per_slot, sm_count,
-                       [n // 3 for n in lengths])
+                       [n // 3 for n in lengths], chunk)
     _check_runs(split_ranges(lengths, q_lens, page, n_blocks, *stale),
                 lengths, q_lens, page, n_blocks, stale[0])
 
@@ -319,7 +350,8 @@ def test_split_merge_matches_unsplit_and_jax(group, sm_count):
     pool = _q8_pool(k, v)
     t = torch.from_numpy
     args = (t(q), pool, t(table), t(ln), t(ql))
-    n_splits, pps = split_plan(PAGE, 8, 2, sm_count, lengths)
+    n_splits, pps = split_plan(PAGE, 8, 2, sm_count, lengths,
+                               chunk_keys(PAGE, True))
     assert (n_splits, pps) == ((2, 4) if sm_count == 132 else (1, 8))
     got = paged_ragged_attention_split_plain(
         *args, scale=SCALE, n_splits=n_splits, pages_per_split=pps).numpy()
@@ -343,18 +375,72 @@ def test_split_merge_matches_unsplit_and_jax(group, sm_count):
     (24, 1, [8 * PAGE] * 4)])
 def test_q8_plan_is_split_plan_over_the_calls_tiles(chunk, group, host,
                                                     monkeypatch):
-    """``q8_plan`` -- the plan the int8 launch uses -- is ``split_plan``
-    over the call's tiles of 16 (row, group member) pairs per kv head,
-    every slot at the table's width when no host lengths are given."""
-    h_kv, n_blocks, sms = 2, 8, 132
+    """``kernel_plan`` -- the plan every launch uses, over an int8 pool or
+    one in q's dtype -- is ``split_plan`` over the call's tiles of 16 (row,
+    group member) pairs per kv head and the pool's chunk, every slot at
+    the table's width when no host lengths are given."""
+    h_kv, n_blocks, sms, page = 2, 8, 132, 64
     monkeypatch.setitem(pa._SM_COUNT, torch.device("cpu"), sms)
     q = torch.zeros(4, chunk, h_kv * group, D)
-    pool = (torch.zeros(1 + 4 * n_blocks, PAGE, h_kv, D, dtype=torch.int8),)
+    tiles = -(-chunk * group // pa.TILE_PAIRS)
     table = torch.zeros(4, n_blocks, dtype=torch.int32)
-    tiles = -(-chunk * group // pa.Q8_TILE_PAIRS)
-    lengths = [n_blocks * PAGE] * 4 if host is None else host
-    assert pa.q8_plan(q, pool, table, host) == split_plan(
-        PAGE, n_blocks, h_kv * tiles, sms, lengths)
+    lengths = [n_blocks * page] * 4 if host is None else host
+    for dtype, keys in ((torch.int8, 64), (torch.float32, 32)):
+        pool = (torch.zeros(1 + 4 * n_blocks, page, h_kv, D, dtype=dtype),)
+        assert chunk_keys(page, dtype == torch.int8) == keys
+        assert pa.kernel_plan(q, pool, table, host) == split_plan(
+            page, n_blocks, h_kv * tiles, sms, lengths, keys)
+
+
+@pytest.mark.parametrize("int8_pool", [False, True])
+@pytest.mark.parametrize("sm_count", [8, 132, 100000])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_split_plan_with_each_pools_chunk_covers_every_live_page_once(
+        case, sm_count, int8_pool):
+    """The chunk is 64 keys of an int8 pool and 32 of one in q's dtype, at
+    most a page, and a whole number of chunks fill a page; the plan made
+    with either chunk covers each live slot's pages exactly once, from
+    fresh and from stale lengths.  With pages of 64 and more, the smaller
+    chunk lets a split be half as many pages and still give each of the
+    four warps a chunk."""
+    lengths, q_lens, page, n_blocks = SPLIT_CASES[case]
+    chunk = chunk_keys(page, int8_pool)
+    assert chunk == min(page, 64 if int8_pool else 32) and page % chunk == 0
+    for lens in (lengths, [n // 3 for n in lengths]):
+        n_splits, pps = split_plan(page, n_blocks, 16, sm_count, lens, chunk)
+        assert n_splits >= 1 and pps >= 1
+        _check_runs(split_ranges(lengths, q_lens, page, n_blocks, n_splits,
+                                 pps), lengths, q_lens, page, n_blocks,
+                    n_splits)
+    # one unit a slot on a card of many SMs: a split is the fewest pages
+    # that give every warp a chunk
+    one = split_plan(page, n_blocks, 1, 10 ** 6, [n_blocks * page], chunk)
+    assert one[1] == min(n_blocks, -(-pa.WARPS // (page // chunk)))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_split_merge_over_a_pool_in_q_dtype_matches_unsplit_and_jax(group):
+    """The split-K plain version over a float32 pool in q's dtype, with the
+    runs the plan gives for its chunk (two of 4 pages), equal to the
+    unsplit plain version within 1e-6 and to the Pallas ``_kernel``; runs
+    of 1, 2 and 4 pages too."""
+    lengths = [PAGE, PAGE + 1, PAGE - 1, 29, 0, 8 * PAGE]
+    q, k, v, table, ln, ql = _inputs(150 + group, 6, 8, group, 2, 8,
+                                     MIXED_Q_LENS, lengths, poison=1e4)
+    t = torch.from_numpy
+    args = (t(q), (t(k), t(v)), t(table), t(ln), t(ql))
+    n_splits, pps = split_plan(PAGE, 8, 2, 132, lengths,
+                               chunk_keys(PAGE, False))
+    assert (n_splits, pps) == (2, 4)
+    unsplit = paged_ragged_attention_plain(*args, scale=SCALE).numpy()
+    for n, per in ((n_splits, pps), (8, 1), (4, 2), (2, 4)):
+        got = paged_ragged_attention_split_plain(
+            *args, scale=SCALE, n_splits=n, pages_per_split=per).numpy()
+        np.testing.assert_allclose(got, unsplit, rtol=1e-6, atol=1e-6)
+    want = _jax(q, k, v, table, ln, ql)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+    for b, n in enumerate(MIXED_Q_LENS):
+        assert (got[b, n:] == 0).all(), f"pad rows of slot {b}"
 
 
 def test_split_counters_per_stream(monkeypatch):

@@ -14,16 +14,27 @@ other.  Each turn builds its tree's kernels and times them with its tree's
 * ``paged``: ``paged_ragged_attention`` at every case of
   ``chip_smoke.paged_cases``, over pools in q's dtype and int8 pools, the
   inputs made by each turn's own ``chip_smoke._attention_case`` (page 0
-  poisoned); a tree whose wrapper takes ``host_lengths`` gets them.
+  poisoned); a tree whose wrapper takes ``host_lengths`` gets them;
+* ``dal``: ``dal_forward`` and ``dal_backward`` (from the turn's own
+  forward's h and statistics) at every case of ``chip_smoke.DAL_CASES``:
+  the fused encoder's ``[4096, 1024]`` bf16, p 0.1 first, float32, odd
+  rows, widths 768, 8192 and 1020 / 1022;
+* ``decode``: ``fused_decode_attention`` at every case and position of
+  ``chip_smoke.DEC_ATTN_CASES`` (bf16, float32 and int8 caches at
+  gpt3-350m's decode, bf16 and int8 at head dims 96 and 80).
 
-A shape a tree's kernels refuse (a head dim it was not built for) is
-reported as null.  Prints one JSON line per turn and the card's name and
-power limit.  Run from the repository root on a machine with a CUDA card::
+The inputs of ``dal`` and ``decode`` are made from a seed by this script,
+the same in every turn.  A shape a tree's kernels refuse (a head dim it was
+not built for) is reported as null.  Prints one JSON line per turn and the
+card's name and power limit.  Run from the repository root on a machine
+with a CUDA card::
 
     mkdir -p archive_check/parent
     git archive <commit> | tar -x -C archive_check/parent
     python3 tools/torch_ab.py flash archive_check/parent
     python3 tools/torch_ab.py paged archive_check/parent
+    python3 tools/torch_ab.py dal archive_check/parent
+    python3 tools/torch_ab.py decode archive_check/parent
 """
 from __future__ import annotations
 
@@ -109,6 +120,65 @@ print(json.dumps(out))
 '''
 
 
+# argv: the tree, this tree's DAL_CASES (JSON)
+DAL_TURN = r'''
+import importlib, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+fu = importlib.import_module("paddle_ray_tpu_torch.ops.fused")
+t = chip_smoke.time_ms
+out = {}
+for name, rows, h, dtype, p, training, dh2, _ in json.loads(sys.argv[2]):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(rows + h)
+    r = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    x, res, dy = (r(rows, h).to(dt) for _ in range(3))
+    d2 = r(rows, h).to(dt) if dh2 else None
+    w, b = (1.0 + 0.2 * r(h)).to(dt), (0.2 * r(h)).to(dt)
+    kw = dict(p=p, training=training)
+    _, hh, mean, rstd = fu.dal_forward(x, res, w, b, 12345, epsilon=1e-5,
+                                       **kw)
+    out[name] = {
+        "fwd": t(lambda: fu.dal_forward(x, res, w, b, 12345, epsilon=1e-5,
+                                        **kw), iters=50),
+        "bwd": t(lambda: fu.dal_backward(hh, mean, rstd, w, dy, d2, 12345,
+                                         **kw), iters=50)}
+    del x, res, dy, d2, hh
+print(json.dumps(out))
+'''
+
+# argv: the tree, this tree's DEC_ATTN_CASES (JSON), batch and cache rows
+DECODE_TURN = r'''
+import importlib, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from paddle_ray_tpu_torch.models.generation import _kv_quant
+da = importlib.import_module("paddle_ray_tpu_torch.ops.decode_attention")
+b, t_len = json.loads(sys.argv[3])
+out = {}
+for name, kind, dtype, h, d, positions in json.loads(sys.argv[2]):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    q = torch.randn(b, h, 1, d, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(b, h, t_len, d, generator=g, device="cuda")
+            for _ in range(2))
+    cache = ((*_kv_quant(k), *_kv_quant(v)) if kind == "q8"
+             else (k.to(dt), v.to(dt)))
+    for pos in positions:
+        fn = lambda: da.fused_decode_attention(q, cache, pos,
+                                               scale=d ** -0.5)
+        try:
+            fn()
+        except ValueError:  # a head dim this tree's kernel does not take
+            out[f"{name}_pos{pos}"] = None
+            continue
+        out[f"{name}_pos{pos}"] = chip_smoke.time_ms(fn, iters=50)
+print(json.dumps(out))
+'''
+
+
 def _flash_args() -> list:
     """This tree's bf16 flash cases and modes, and the rows the
     causal-segments mode leaves no visible key."""
@@ -131,13 +201,25 @@ def _paged_args() -> list:
                         for name, kw in chip_smoke.paged_cases()])]
 
 
-KINDS = {"flash": (FLASH_TURN, _flash_args), "paged": (PAGED_TURN, _paged_args)}
+def _dal_args() -> list:
+    import chip_smoke
+    return [json.dumps(chip_smoke.DAL_CASES)]
+
+
+def _decode_args() -> list:
+    import chip_smoke
+    return [json.dumps(chip_smoke.DEC_ATTN_CASES),
+            json.dumps([chip_smoke.GEN_BATCH, chip_smoke.DEC_CACHE_T])]
+
+
+KINDS = {"flash": (FLASH_TURN, _flash_args), "paged": (PAGED_TURN, _paged_args),
+         "dal": (DAL_TURN, _dal_args), "decode": (DECODE_TURN, _decode_args)}
 
 
 def main() -> None:
     if len(sys.argv) != 3 or sys.argv[1] not in KINDS:
-        raise SystemExit("usage: python3 tools/torch_ab.py {flash,paged} "
-                         "OTHER_TREE")
+        raise SystemExit("usage: python3 tools/torch_ab.py "
+                         "{flash,paged,dal,decode} OTHER_TREE")
     turn, make_args = KINDS[sys.argv[1]]
     trees = {"other": os.path.abspath(sys.argv[2]), "this": ROOT}
     sys.path.insert(0, ROOT)

@@ -1,17 +1,19 @@
-"""The int8 paged kernel's split-K and tile-path choices, measured on one
-card with ``chip_smoke.time_ms`` (median of 30, L2 flushed):
+"""The paged kernel's split-K and tile-path choices over an int8 pool and
+a bf16 one, measured on one card with ``chip_smoke.time_ms`` (median of
+30, L2 flushed):
 
-* splits: at four of ``chip_smoke.paged_cases``' int8 cases (GPT-3 350m's
-  8 x 2048 decode, the long ragged decode of 1-8192 tokens, the 128-wide
-  mixed chunk, GQA 4 over pages of 32) the kernel is timed at 1, 2, 4, 8
-  and 16 splits of equal page runs (``q8_plan`` forced) beside the plan
-  ``q8_plan`` picks;
+* splits: at four of ``chip_smoke.paged_cases``' cases of each pool kind
+  (GPT-3 350m's 8 x 2048 decode, the long ragged decode of 1-8192 tokens,
+  the 128-wide mixed chunk, GQA 4 over pages of 32) the kernel is timed at
+  1, 2, 4, 8 and 16 splits of equal page runs (``kernel_plan`` forced)
+  beside the plan ``kernel_plan`` picks;
 * tile path: the 8 x 2048 decode with 16, 8 and 4 kv heads (a tile of one,
-  two and four live pairs) and the long ragged decode, timed with the
-  kernel as built and with two copies of its source rebuilt with
-  ``kTcMinPairs`` 0 (every bf16 tile on the tensor cores) and 4 (every
-  decode tile on the CUDA cores); each copy's result is held to the plain
-  version at ``chip_smoke``'s bf16 tolerances.
+  two and four live pairs) and the long ragged decode, over each pool
+  kind, timed with the kernel as built and with two copies of its source
+  rebuilt with both thresholds (``kTcMinPairsQ8``, ``kTcMinPairsBf16``) at
+  0 (every bf16 tile on the tensor cores) and 4 (every decode tile on the
+  CUDA cores); each copy's result is held to the plain version at
+  ``chip_smoke``'s bf16 tolerances.
 
 Prints one JSON line per case and the card's name and power limit.  Run
 from the repository root on a machine with a CUDA card::
@@ -32,16 +34,19 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPLIT_CASES = ("decode_2048_q8_bf16", "long_decode_q8_bf16", "mixed_q8_bf16",
-               "decode_gqa4_q8_page32_bf16")
+               "decode_gqa4_q8_page32_bf16", "decode_2048_bf16",
+               "long_decode_bf16", "mixed_bf16", "decode_gqa4_page32_bf16")
 # (name, case of paged_cases, kv heads) of the tile-path comparison
-PATH_CASES = (("decode_2048_q8_bf16", "decode_2048_q8_bf16", 16),
-              ("decode_2048_gqa2_q8_bf16", "decode_2048_q8_bf16", 8),
-              ("decode_2048_gqa4_q8_bf16", "decode_2048_q8_bf16", 4),
-              ("long_decode_q8_bf16", "long_decode_q8_bf16", 16))
-# the source's threshold, rebuilt as: every bf16 tile on the tensor cores,
-# every decode tile on the CUDA cores
+PATH_CASES = tuple(
+    (f"decode_2048{g}{q8}_bf16", f"decode_2048{q8}_bf16", h_kv)
+    for q8 in ("_q8", "") for g, h_kv in (("", 16), ("_gqa2", 8),
+                                          ("_gqa4", 4))) + (
+    ("long_decode_q8_bf16", "long_decode_q8_bf16", 16),
+    ("long_decode_bf16", "long_decode_bf16", 16))
+# the source's thresholds, both rebuilt as: every bf16 tile on the tensor
+# cores, every decode tile on the CUDA cores
 VARIANTS = {"tensor_cores": 0, "cuda_cores": 4}
-THRESHOLD = re.compile(r"constexpr int kTcMinPairs = \d+;")
+THRESHOLD = re.compile(r"constexpr int (kTcMinPairs(?:Q8|Bf16)) = \d+;")
 
 
 def _variant_libs(tmp: str) -> dict:
@@ -50,14 +55,14 @@ def _variant_libs(tmp: str) -> dict:
     from paddle_ray_tpu_torch.ops import _build
     with open(_build.csrc_path("paged_attention")) as f:
         src = f.read()
-    if len(THRESHOLD.findall(src)) != 1:
-        raise SystemExit("kTcMinPairs not found once in paged_attention.cu")
+    if len(THRESHOLD.findall(src)) != 2:
+        raise SystemExit("the two kTcMinPairs constants not found in "
+                         "paged_attention.cu")
     jobs = {}
     for name, pairs in VARIANTS.items():
         cu = os.path.join(tmp, f"paged_{name}.cu")
         with open(cu, "w") as f:
-            f.write(THRESHOLD.sub(f"constexpr int kTcMinPairs = {pairs};",
-                                  src))
+            f.write(THRESHOLD.sub(rf"constexpr int \1 = {pairs};", src))
         so = cu[:-3] + ".so"
         jobs[name] = (so, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
@@ -78,7 +83,7 @@ def main() -> None:
     from paddle_ray_tpu_torch.ops import _build
     pa = importlib.import_module("paddle_ray_tpu_torch.ops.paged_attention")
     cases = dict(chip_smoke.paged_cases())
-    plan = pa.q8_plan
+    plan = pa.kernel_plan
 
     def call(c):
         host = c["lengths"].tolist()   # once: no copy inside a timed call
@@ -95,11 +100,11 @@ def main() -> None:
         for want in (1, 2, 4, 8, 16):
             pps = -(-longest // want)
             n = -(-longest // pps)
-            pa.q8_plan = lambda *a, n=n, pps=pps: (n, pps)
+            pa.kernel_plan = lambda *a, n=n, pps=pps: (n, pps)
             try:
                 row[f"splits_{n}"] = chip_smoke.time_ms(call(c), iters=30)
             finally:
-                pa.q8_plan = plan
+                pa.kernel_plan = plan
         print(json.dumps(row), flush=True)
 
     tmp = tempfile.mkdtemp(prefix="paged_variants_")
