@@ -15,7 +15,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    (``cuobjdump``) beside ptxas's registers and spills, failing if a bf16
    flash tensor-core kernel (forward, dq, dk/dv; dq at all four head dims)
    holds no ``HGMMA``, a float32 flash kernel holds one, or a paged kernel
-   with bf16 q (over an int8 or a bf16 pool) holds no ``HMMA``.
+   with bf16 q (over an int8 or a bf16 pool) holds no ``HMMA``; the
+   decode-attention and dropout-add-LN kernels' registers and spills are
+   reported beside them.
 3. kernel  -- the paged-attention kernel against its plain PyTorch
    version at the shapes the serving path gives it (float32
    ``atol=1e-4``, bfloat16 ``atol=2e-2`` and each row's ``max|err| /
@@ -46,7 +48,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    fused decode attention at B 8, h 16, d 64 over the 512-row cache of
    ``generate()`` (pos 0, 127, 255, 383; bfloat16, float32 and int8), at
    gpt3-760m's h 16, d 96 and gpt3-2.7b's h 32, d 80 (pos 255; bfloat16
-   and int8), and
+   and int8), and one stream (B 1, h 16, d 64) at the end of a 2048-row
+   cache (bfloat16 and int8), where the kernel splits each pair's rows;
+   each case the same bits in two calls, with the split plan it used; and
    ``int8_stream_matmul`` at gpt3-350m's decode shapes (8 rows x 1024->3072,
    1024->1024, 1024->4096, 4096->1024, the 1024->50304 head), float32 and
    N = 97; each timed beside its bound and one library call.
@@ -125,10 +129,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    output's cotangent; widths 768, 8192 and 1020 / 1022 (not a whole
    number of 16-byte vectors); the keep mask bit-identical to
    ``keep_mask_plain`` (h of x = 1, residual 0 is the scaled mask), the
-   backward the same bits in two calls.  y and h within ``atol``
-   1e-4 (float32) / 2e-2 plus one bfloat16 rounding step (``rtol`` 2**-7),
-   statistics within 1e-4, gradients within ``max|err| / max|ref|`` 1e-4 /
-   2e-2.  The encoder's case and the new widths timed beside the bound,
+   forward and the backward each the same bits in two calls.  y and h
+   within ``atol`` 1e-4 (float32) / 2e-2 plus one bfloat16 rounding step
+   (``rtol`` 2**-7), statistics within 1e-4, gradients within ``max|err|
+   / max|ref|`` 1e-4 / 2e-2.  The encoder's case and the new widths timed beside the bound,
    the plain version and ``torch.nn.functional.layer_norm`` on h alone
    (and its autograd backward).
 17. bert_train -- ``bench.py:bench_bert("bert-large", 512, 8, 10, {},
@@ -262,14 +266,18 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, flush="zero") -> float:
     """Median CUDA-event time of ``fn`` (ms) on the device, with the 50 MB
     L2 flushed before every timed launch: the serving path reads each
     layer's pages cold.  A device-side sleep longer than the host's
     enqueue of ``fn`` sits before the start event, so the events bracket
     the device work alone and not the Python around it (a kernel of a few
-    microseconds would otherwise time its wrapper)."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    microseconds would otherwise time its wrapper).  ``flush`` is
+    ``"zero"`` (64 MB of zeros written, the L2 left full of dirty lines),
+    another callable run in its place, or None (no flush)."""
+    if flush == "zero":
+        flush = torch.empty(64 << 20, dtype=torch.uint8,
+                            device="cuda").zero_
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -281,7 +289,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     sleep_cycles = int(2 * max(host_s, 50e-6) * 1.98e9)
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if flush is not None:
+            flush()
         torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -397,6 +406,17 @@ def _paged_short(mangled):
     return f"{base}<{t},{kv},{d},{page}>"
 
 
+# fused decode attention's and the dropout-add-LN kernels' instantiations,
+# by their mangled names
+_ROW_NAME = re.compile(r"(fused_decode_attention_kernel|dal_fwd_kernel|"
+                       r"dal_bwd_kernel)I\w+")
+
+
+def _row_short(mangled):
+    m = _ROW_NAME.search(mangled)
+    return m.group(0) if m else None
+
+
 def _sass_counts(library, log, short, out_name) -> dict:
     """Each kernel's tensor-core instructions in the built library's SASS
     (``cuobjdump --dump-sass``: ``HGMMA`` is wgmma, ``HMMA`` mma.sync) and
@@ -453,6 +473,9 @@ def _sass_check(logs: dict) -> None:
                            _flash_short, "sass_flash_mma.txt")
     paged = _sass_counts("paged_attention", logs["paged_attention"],
                          _paged_short, "sass_paged_mma.txt")
+    for library in ("decode_attention", "fused"):
+        _sass_counts(library, logs[library], _row_short,
+                     f"sass_{library}_mma.txt")
     if kernels is None or paged is None:
         return
     tc = [n for n in kernels if "_tc_kernel" in n]
@@ -1000,27 +1023,39 @@ def _matmul_bound(b, k, n, dtype, bias) -> dict:
             "bytes": n_bytes, "ops": ops}
 
 
-# (name, cache kind, q dtype, heads, head dim, positions): gpt3-350m's
-# decode at batch 8, then gpt3-760m's (16 heads of 96) and gpt3-2.7b's (32
-# of 80)
+# (name, cache kind, q dtype, batch, heads, head dim, cache rows,
+# positions): gpt3-350m's decode at batch 8, then gpt3-760m's (16 heads of
+# 96) and gpt3-2.7b's (32 of 80); then one stream decoding gpt3-350m at the
+# end of a 2048-row cache, where 16 pairs alone would leave most SMs idle
+# and the kernel splits each pair's rows (the float32 cache at 1e-4: a
+# mis-weighted merge moves these outputs, averages of 2048 rows, by about
+# 1e-3, which a bf16 output's TOL alone does not see)
+DEC_LONG_T = 2048
 DEC_ATTN_CASES = (
-    ("bf16", "bf16", "bfloat16", 16, 64, DEC_POSITIONS),
-    ("f32", "f32", "float32", 16, 64, DEC_POSITIONS),
-    ("q8", "q8", "bfloat16", 16, 64, DEC_POSITIONS),
-    *((f"{kind}_d{d}", kind, "bfloat16", h, d, (255,))
-      for h, d in ((16, 96), (32, 80)) for kind in ("bf16", "q8")))
+    ("bf16", "bf16", "bfloat16", GEN_BATCH, 16, 64, DEC_CACHE_T,
+     DEC_POSITIONS),
+    ("f32", "f32", "float32", GEN_BATCH, 16, 64, DEC_CACHE_T,
+     DEC_POSITIONS),
+    ("q8", "q8", "bfloat16", GEN_BATCH, 16, 64, DEC_CACHE_T,
+     DEC_POSITIONS),
+    *((f"{kind}_d{d}", kind, "bfloat16", GEN_BATCH, h, d, DEC_CACHE_T,
+       (255,))
+      for h, d in ((16, 96), (32, 80)) for kind in ("bf16", "q8")),
+    *((f"long_{kind}_b1", kind, dtype, 1, 16, 64, DEC_LONG_T,
+       (DEC_LONG_T - 1,))
+      for kind, dtype in (("bf16", "bfloat16"), ("q8", "bfloat16"),
+                          ("f32", "float32"))))
 
 
-def _decode_attention_inputs(kind, dtype, h, d):
-    """q ``[8, h, 1, d]`` and a ``DEC_CACHE_T``-row cache from the seed:
+def _decode_attention_inputs(kind, dtype, b, h, d, t_len):
+    """q ``[b, h, 1, d]`` and a ``t_len``-row cache from the seed:
     ``(k, v)`` in q's dtype, or int8 ``(k_q, k_s, v_q, v_s)``."""
     from paddle_ray_tpu_torch.models.generation import _kv_quant
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
-    b = GEN_BATCH
     q = torch.randn(b, h, 1, d, generator=g, device="cuda").to(dtype)
-    k = torch.randn(b, h, DEC_CACHE_T, d, generator=g, device="cuda")
-    v = torch.randn(b, h, DEC_CACHE_T, d, generator=g, device="cuda")
+    k = torch.randn(b, h, t_len, d, generator=g, device="cuda")
+    v = torch.randn(b, h, t_len, d, generator=g, device="cuda")
     if kind == "q8":
         (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
         return q, (kq, ks, vq, vs)
@@ -1031,13 +1066,12 @@ def _decode_attention_cases():
     import torch.nn.functional as F
     from paddle_ray_tpu_torch.ops.decode_attention import (
         fused_decode_attention, fused_decode_attention_plain,
-        fused_decode_attention_q8_plain)
-    b = GEN_BATCH
+        fused_decode_attention_q8_plain, kernel_plan)
     results = {}
-    for name, kind, dtype, h, d, positions in DEC_ATTN_CASES:
+    for name, kind, dtype, b, h, d, t_len, positions in DEC_ATTN_CASES:
         dtype = getattr(torch, dtype)
         scale = 1.0 / d ** 0.5
-        q, cache = _decode_attention_inputs(kind, dtype, h, d)
+        q, cache = _decode_attention_inputs(kind, dtype, b, h, d, t_len)
         if kind == "q8":
             kq, ks, vq, vs = cache
             plain = fused_decode_attention_q8_plain
@@ -1048,16 +1082,29 @@ def _decode_attention_cases():
             kd, vd = cache
         for pos in positions:
             got = fused_decode_attention(q, cache, pos, scale=scale)
+            again = fused_decode_attention(q, cache, pos, scale=scale)
             torch.cuda.synchronize()
+            same_bits = bool(torch.equal(got, again))
             want = plain(q, cache, pos, scale=scale)
             err = float((got.float() - want.float()).abs().max())
             tol = TOL[dtype]
-            if not (err <= tol and torch.isfinite(got).all()):
+            # a bf16 output is held besides to every row's largest value,
+            # as the paged kernel's (PAGED_BF16_REL_TOL)
+            rel = _row_rel_err(got, want)
+            rel_tol = PAGED_BF16_REL_TOL if dtype == torch.bfloat16 else None
+            if not (err <= tol and (rel_tol is None or rel <= rel_tol)
+                    and torch.isfinite(got).all() and same_bits):
                 raise AssertionError(f"decode attention {name} pos {pos}: "
-                                     f"max_abs_err {err} > {tol}")
+                                     f"max_abs_err {err} (tolerance {tol}), "
+                                     f"row_rel_err {rel} (tolerance "
+                                     f"{rel_tol}), the same bits in two "
+                                     f"calls {same_bits}")
+            n_splits, rps = kernel_plan(q, pos)
             ks_, vs_ = (kd[:, :, :pos + 1].contiguous(),
                         vd[:, :, :pos + 1].contiguous())
-            r = {"max_abs_err": err, "tol": tol,
+            r = {"max_abs_err": err, "tol": tol, "row_rel_err": rel,
+                 "row_rel_tol": rel_tol, "same_bits_twice": same_bits,
+                 "n_splits": n_splits, "rows_per_split": rps,
                  "ms": time_ms(lambda: fused_decode_attention(
                      q, cache, pos, scale=scale)),
                  "plain_ms": time_ms(lambda: plain(q, cache, pos,
@@ -1068,7 +1115,7 @@ def _decode_attention_cases():
                                            kind == "q8")}
             results[f"{name}_pos{pos}"] = r
             emit("decode_kernel", kernel="fused_decode_attention",
-                 case=f"{name}_pos{pos}", shape=[b, h, DEC_CACHE_T, d],
+                 case=f"{name}_pos{pos}", shape=[b, h, t_len, d],
                  q_dtype=str(dtype), cache_dtype=str(cache[0].dtype),
                  library="scaled_dot_product_attention over [B, h, pos+1, d]"
                  + (" (dequantised cache)" if kind == "q8" else ""), **r)
@@ -1374,7 +1421,9 @@ def _dal_case(name, rows, h, dtype, p, training, dh2, timed) -> dict:
     w, b = (1.0 + 0.2 * r(h)).to(dtype), (0.2 * r(h)).to(dtype)
     kw = dict(p=p, training=training)
     out = dal_forward(x, res, w, b, DAL_SEED, epsilon=DAL_EPS, **kw)
+    out_again = dal_forward(x, res, w, b, DAL_SEED, epsilon=DAL_EPS, **kw)
     torch.cuda.synchronize()
+    fwd_same_bits = all(torch.equal(a, b) for a, b in zip(out, out_again))
     ref = dal_forward_plain(x, res, w, b, DAL_SEED, epsilon=DAL_EPS, **kw)
     bwd = (ref[1], ref[2], ref[3], w, dy, d2, DAL_SEED)
     got = dal_backward(*bwd, **kw)
@@ -1403,15 +1452,15 @@ def _dal_case(name, rows, h, dtype, p, training, dh2, timed) -> dict:
         keep = keep_mask_plain((rows, h), p, DAL_SEED, device="cuda")
         mask_same = bool(torch.equal(hm != 0, keep != 0))
     finite = all(bool(torch.isfinite(a).all()) for a in (*out, *got))
-    if not (finite and mask_same is not False and same_bits
+    if not (finite and mask_same is not False and same_bits and fwd_same_bits
             and all(torch.allclose(a.float(), e.float(), rtol=rtol, atol=tol)
                     for a, e in zip(out[:2], ref[:2]))
             and stat_err <= 1e-4 and max(bwd_rel.values()) <= tol):
         raise AssertionError(
             f"dal {name}: kernel vs plain: forward max_abs_err {fwd_err}, "
             f"statistics {stat_err}, gradients rel_err {bwd_rel} (tolerance "
-            f"{tol}), mask bit-identical {mask_same}, backward the same "
-            f"bits in two calls {same_bits}")
+            f"{tol}), mask bit-identical {mask_same}, the same bits in two "
+            f"calls: forward {fwd_same_bits}, backward {same_bits}")
     out_r = {"fwd": {"max_abs_err": fwd_err, "stat_err": stat_err,
                      **_dal_bound("fwd", rows, h, dtype, dh2)},
              "bwd": {"max_abs_err": bwd_abs, "rel_err": bwd_rel,
@@ -1442,7 +1491,8 @@ def _dal_case(name, rows, h, dtype, p, training, dh2, timed) -> dict:
             library_fwd_bwd_minus_fwd_ms=lib_fwd_bwd - lib_fwd)
     emit("dal_kernel", case=name, shape=[rows, h], dtype=str(dtype), p=p,
          training=training, dh2=dh2, tol=tol, rtol=rtol,
-         mask_bit_identical=mask_same, bwd_same_bits_twice=same_bits,
+         mask_bit_identical=mask_same, fwd_same_bits_twice=fwd_same_bits,
+         bwd_same_bits_twice=same_bits,
          timed=timed,
          library="torch.nn.functional.layer_norm on h: LayerNorm alone, "
                  "without the dropout or the residual add (bwd: its "
@@ -1585,13 +1635,13 @@ def phase_check(model) -> None:
     del eng, m32
 
 
-def _check_model(name):
+def _check_model(name, max_seq_len=512):
     """A 4-layer float32 model of ``name``'s width, random from a seed."""
     from paddle_ray_tpu_torch.models import build_gpt
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 2)
     return build_gpt(name, device="cuda", dtype=torch.float32, num_layers=4,
-                     max_seq_len=512, generator=g)
+                     max_seq_len=max_seq_len, generator=g)
 
 
 def phase_check_760m() -> None:
@@ -1843,10 +1893,103 @@ def phase_generate(model) -> dict:
     return results
 
 
+# one stream's prompts: bench.py's 128, and a long context whose decode
+# positions (1536-1790) fused decode attention splits
+GEN_B1_PROMPTS = (GEN_PROMPT, 1536)
+GEN_B1_PROFILED = 64   # new tokens of each profiled batch-1 call
+
+
+def phase_generate_b1(model) -> dict:
+    """One stream: bf16 ``generate()`` at batch 1, 256 new tokens from each
+    prompt of ``GEN_B1_PROMPTS``.  16 (batch, head) pairs leave most SMs
+    idle, so over a long cache fused decode attention splits a pair's
+    rows.  For each prompt one warm-up and two timed calls, each launching
+    the kernel once a layer and step; the split plan of every launch, as
+    the wrapper takes it from ``kernel_plan``; then the kernel's device
+    time in a profiled ``GEN_B1_PROFILED``-token call as planned, and in
+    one with every launch held to a single split."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_ray_tpu_torch.models import generate
+    from paddle_ray_tpu_torch.ops import decode_attention as da
+    cfg = model.cfg
+    expect = cfg.num_layers * (GEN_NEW - 1)
+    counters = _decode_counters()
+    planned = da.kernel_plan
+    splits = []
+
+    def recorded(q, pos):
+        plan = planned(q, pos)
+        splits.append(plan[0])
+        return plan
+
+    def unsplit(q, pos):
+        return da.decode_split_plan(q.shape[0] * q.shape[1], pos + 1, 1)
+
+    results = {}
+    for prompt in GEN_B1_PROMPTS:
+        ids = torch.from_numpy(np.random.RandomState(SEED + 5).randint(
+            0, cfg.vocab_size, (1, prompt))).to("cuda")
+        generate(model, ids, GEN_NEW)                          # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(2):
+            _reset(counters)
+            splits.clear()
+            da.kernel_plan = recorded
+            try:
+                t0 = time.perf_counter()
+                out = generate(model, ids, GEN_NEW)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            finally:
+                da.kernel_plan = planned
+            launches = _read(counters)
+            if (launches["fused_decode_attention"] != expect
+                    or len(splits) != expect):
+                raise AssertionError(f"generate_b1 prompt {prompt}: "
+                                     f"launches {launches}, plans "
+                                     f"{len(splits)}, want {expect}")
+        if (out.shape != (1, prompt + GEN_NEW)
+                or not torch.equal(out[:, :prompt], ids)
+                or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size):
+            raise AssertionError(f"generate_b1 prompt {prompt}: bad output "
+                                 f"{out.shape}")
+        n_split = sum(n > 1 for n in splits)
+        call_s = float(np.mean(times))
+        r = {"tokens_per_s": GEN_NEW / call_s, "call_s": times,
+             "decode_attention_launches": len(splits),
+             "split_launches": n_split, "split_share": n_split / len(splits),
+             "n_splits_min_max": [min(splits), max(splits)]}
+        for mode, plan in (("split", planned), ("one_split", unsplit)):
+            da.kernel_plan = plan
+            try:
+                generate(model, ids, GEN_B1_PROFILED)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    generate(model, ids, GEN_B1_PROFILED)
+                    torch.cuda.synchronize()
+            finally:
+                da.kernel_plan = planned
+            rows = kernel_rows(prof)
+            att = [(t, c) for k, t, c in rows
+                   if "fused_decode_attention_kernel" in k]
+            r[f"profile_{mode}"] = {
+                "new_tokens": GEN_B1_PROFILED,
+                "device_ms": sum(t for _, t, _ in rows) / 1e3,
+                "decode_attention_ms": sum(t for t, _ in att) / 1e3,
+                "decode_attention_launches": sum(c for _, c in att)}
+        results[prompt] = r
+        emit("generate_b1", model=MODEL, batch=1, prompt=prompt,
+             new_tokens=GEN_NEW, weights="bf16", kv_cache="model", **r)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # 10. correctness of the decode path on the card
 # ---------------------------------------------------------------------------
 CHECK_TIE = 1e-3
+CHECK_B1_PROMPT = 1040
 
 
 def _first_gap(model, seq, t0, j) -> float:
@@ -1877,12 +2020,14 @@ def phase_generate_check() -> None:
     """4-layer float32 models of gpt3-350m's and gpt3-760m's widths (head
     dims 64 and 96): the kernels' greedy tokens against the plain chain
     (``fused_attention=False``) for the dense cache in the model's dtype
-    and in int8, and the paged layout against the dense one, every kernel
-    of the chain launched; then the threefry bits of 4,096 (seed,
+    and in int8, and the paged layout against the dense one, at batch 8
+    and, for gpt3-350m, at batch 1 (where decode attention splits), every
+    kernel of the chain launched; then the threefry bits of 4,096 (seed,
     position) keys on the card against the CPU."""
     from paddle_ray_tpu_torch.core import prng
     from paddle_ray_tpu_torch.models import generate
     from paddle_ray_tpu_torch.models.generation import fold_sample_keys
+    from paddle_ray_tpu_torch.ops.decode_attention import kernel_plan
     from paddle_ray_tpu_torch.ops.paged_attention import (
         paged_ragged_attention)
     counters = {**_decode_counters(),
@@ -1892,10 +2037,23 @@ def phase_generate_check() -> None:
                                               "launches_q8")}
     b, t0, new = GEN_BATCH, 64, 32
     report = {}
-    for name in (MODEL, M760):
-        model = _check_model(name)
+    # (model, batch, prompt): gpt3-350m's widths at batch 1 too, over a
+    # cache long enough that fused decode attention splits its 16 pairs
+    for name, bs, prompt in ((MODEL, b, t0), (MODEL, 1, CHECK_B1_PROMPT),
+                             (M760, b, t0)):
+        model = _check_model(name, max(512, prompt + new))
+        tag = name if bs == b else f"{name}_b{bs}"
         ids = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
-            0, model.cfg.vocab_size, (b, t0))).to("cuda")
+            0, model.cfg.vocab_size, (bs, prompt))).to("cuda")
+        if bs == 1:
+            cfg = model.cfg
+            q = torch.empty(1, cfg.num_heads, 1, cfg.head_dim, device="cuda")
+            report[f"{tag}_decode_splits"] = [
+                kernel_plan(q, prompt)[0],
+                kernel_plan(q, prompt + new - 2)[0]]
+            if min(report[f"{tag}_decode_splits"]) < 2:
+                raise AssertionError(f"generate_check {tag}: decode "
+                                     f"attention does not split")
         _reset(counters)
         for kv in ("model", "int8"):
             kernel = generate(model, ids, new, kv_cache_dtype=kv)
@@ -1903,17 +2061,19 @@ def phase_generate_check() -> None:
                              fused_attention=False)
             paged = generate(model, ids, new, kv_cache_dtype=kv,
                              kv_layout="paged", page_size=PAGE)
-            report[f"{name}_fused_vs_plain_{kv}"] = _same_tokens(
-                f"{name} fused vs plain ({kv} KV)", model, kernel, plain, t0)
-            report[f"{name}_paged_vs_dense_{kv}"] = _same_tokens(
-                f"{name} paged vs dense ({kv} KV)", model, paged, kernel, t0)
+            report[f"{tag}_fused_vs_plain_{kv}"] = _same_tokens(
+                f"{tag} fused vs plain ({kv} KV)", model, kernel, plain,
+                prompt)
+            report[f"{tag}_paged_vs_dense_{kv}"] = _same_tokens(
+                f"{tag} paged vs dense ({kv} KV)", model, paged, kernel,
+                prompt)
         launches = _read(counters)
         missing = [k for k, n in launches.items()
                    if n == 0 and k != "int8_stream_matmul"]
         if missing:
-            raise AssertionError(f"generate_check {name}: kernels not "
+            raise AssertionError(f"generate_check {tag}: kernels not "
                                  f"launched: {missing}")
-        report[f"{name}_launches"] = launches
+        report[f"{tag}_launches"] = launches
         del model
     r = np.random.RandomState(SEED + 2)
     seeds = np.concatenate([np.asarray([0, 2 ** 31 + 5, 2 ** 32 - 1],
@@ -1929,6 +2089,7 @@ def phase_generate_check() -> None:
         raise AssertionError("threefry bits differ between the card and the "
                              "CPU")
     emit("generate_check", dtype="float32", layers=4, batch=b, prompt=t0,
+         b1_prompt=CHECK_B1_PROMPT,
          new_tokens=new, tie=CHECK_TIE, threefry_keys=len(seeds),
          threefry_bits_equal=True, **report)
     torch.cuda.empty_cache()
@@ -2888,6 +3049,19 @@ def _entry(name, source, replaces, body, launches, case, shape,
         "library_ms": case["library_ms"], "shape": shape}
 
 
+def _decode_note(att, kind) -> str:
+    """The decode kernel's other head dims and its single-stream long
+    case, for the ``kernels`` line."""
+    d96, d80, long_ = (att[f"{kind}_d96_pos255"], att[f"{kind}_d80_pos255"],
+                       att[f"long_{kind}_b1_pos{DEC_LONG_T - 1}"])
+    return (f"d 96 (h 16) {d96['ms']:.5f} ms against SDPA's "
+            f"{d96['library_ms']:.5f}, d 80 (h 32) {d80['ms']:.5f} against "
+            f"{d80['library_ms']:.5f}; B 1, h 16 at pos {DEC_LONG_T - 1}: "
+            f"{long_['ms']:.5f} ms in {long_['n_splits']} splits of "
+            f"{long_['rows_per_split']} rows merged in the launch, against "
+            f"SDPA's {long_['library_ms']:.5f}")
+
+
 def _decode_step_matmuls(matmul, n_layers) -> dict:
     """The int8 matmul launches of one decode step of gpt3-350m (four
     linears a layer and the tied head), their times and bounds summed."""
@@ -2921,6 +3095,7 @@ def main() -> None:
     phase_check(model)
     serve_int8 = phase_serve_int8(model)
     gen = phase_generate(model)
+    gen_b1 = phase_generate_b1(model)
     n_layers = model.cfg.num_layers
     del model
     torch.cuda.empty_cache()
@@ -3004,16 +3179,29 @@ def main() -> None:
                "decode_attention.py:71", "_kernel_bf16",
                gen_launches["fused_decode_attention"], att["bf16_pos255"],
                "bf16, B 8, h 16, d 64, pos 255 of a 512-row cache (the "
-               "middle of generate()'s decode positions 128..382)",
+               "middle of generate()'s decode positions 128..382); one "
+               "launch a call, q pre-scaled in the kernel, rows by cp.async "
+               "in 32-row groups, the V sum over 16-byte column slices; "
+               + _decode_note(att, "bf16")
+               + "; generate() at batch 1: " + "; ".join(
+                   f"prompt {p}: {r['split_launches']} of "
+                   f"{r['decode_attention_launches']} launches split "
+                   f"(up to {r['n_splits_min_max'][1]} ways), the kernel "
+                   f"{r['profile_split']['decode_attention_ms']:.3f} ms of "
+                   f"a {GEN_B1_PROFILED}-token call against "
+                   f"{r['profile_one_split']['decode_attention_ms']:.3f} "
+                   f"held to one split" for p, r in gen_b1.items()),
                max(r["max_abs_err"] for k, r in att.items()
-                   if k.startswith("bf16"))),
+                   if "bf16" in k)),
         _entry("fused_decode_attention_q8", "decode_attention.cu",
                "decode_attention.py:88", "_kernel_q8",
                gen_launches["fused_decode_attention_q8"], att["q8_pos255"],
                "int8 cache, bf16 q, B 8, h 16, d 64, pos 255 of a 512-row "
-               "cache; library_ms is SDPA over the dequantised cache",
+               "cache; the same kernel as the bf16 cache's; "
+               + _decode_note(att, "q8")
+               + "; library_ms is SDPA over the dequantised cache",
                max(r["max_abs_err"] for k, r in att.items()
-                   if k.startswith("q8"))),
+                   if "q8" in k)),
         _entry("int8_stream_matmul", "decode_matmul.cu",
                "decode_matmul.py:27", "_kernel",
                gen_launches["int8_stream_matmul"],
@@ -3042,12 +3230,16 @@ def main() -> None:
         _entry(name, "fused.cu", f"fused.py:{line}", body,
                enc["launches"][name], dal_case[kind],
                f"bf16 [{ENC_BATCH} x {ENC_SEQ}, {ENC_D}], p {ENC_RATE}, "
-               f"training, h unused (the fused encoder's post-LN call); "
-               f"library_ms is torch.nn.functional.layer_norm on h alone"
+               f"training, h unused (the fused encoder's post-LN call); a "
+               f"row in the registers of {warps} warps, 16-byte loads and "
+               f"stores, shuffle sums, at most 256 blocks, {ahead} by "
+               f"cp.async; library_ms is torch.nn.functional.layer_norm "
+               f"on h alone"
                + ("" if kind == "fwd" else ", its autograd backward"))
-        for name, kind, line, body in zip(
+        for name, kind, line, body, warps, ahead in zip(
             DAL_KERNELS, ("fwd", "bwd"), (95, 116),
-            ("_dal_fwd_kernel", "_dal_bwd_kernel"))]
+            ("_dal_fwd_kernel", "_dal_bwd_kernel"), (2, 4),
+            ("two rows ahead", "the next row"))]
     fwd = _int8_forward_sum(int8, ENC_LAYERS)
     entries.append(_entry(
         "int8_matmul", "int8_matmul.cu", "fused.py:320", "_int8_mm_kernel",

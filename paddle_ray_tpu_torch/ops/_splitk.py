@@ -1,0 +1,32 @@
+"""Per-device state of the split-K attention kernels (paged attention and
+fused decode attention): the card's SM count, which their split plans
+read, and the int32 counters by which the last block of a split pair
+finds that it merges the splits."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["sm_count", "split_counters"]
+
+_SM_COUNT = {}
+_COUNTERS = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
+def split_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The split counters for launches on ``stream`` of ``dev``: zero, and
+    left zero by every launch that runs to its end, so one buffer serves
+    every call on that stream, whichever split-K kernel it launches;
+    another stream gets its own, as launches that share counters must not
+    overlap."""
+    buf = _COUNTERS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _COUNTERS[(dev, stream)] = buf
+    return buf

@@ -28,41 +28,47 @@
 // and y and h written once (forward); h, dy, dh2 read and dx, dres written once
 // (backward), over 3.35 TB/s.
 //
-// Design:
-//   * forward (simple first): one block per row, up to 256 threads walking its
-//     columns; the row of h is staged in shared memory as f32, so x and residual
-//     are read once; the two block reductions (sum, then centred sum of squares)
-//     are warp shuffles and one shared word a warp, in a fixed order.  Left for
-//     later: 16-byte loads, several rows a block, registers for the row;
-//   * backward, for the card: a row lives in the registers of a group of G warps
-//     (one up to H 256, two up to 512, four up to 1024, eight beyond), each lane
-//     holding NV 16-byte vectors of h and dy: 8 bf16 or 4 f32 a vector, 8 values
-//     a lane up to H 2048 (measured faster than 16 with half the warps a row),
-//     vector v of the row in lane v % 32 of the group's warp v / 32 % G.  Each is
-//     read once, by 16-byte loads (where H is not a multiple of the vector or a
-//     pointer is not 16-byte aligned, by element loads of columns lane, lane +
-//     32, ... of the same 32-vector blocks).  The two row sums are warp shuffles
-//     and, for G > 1, one exchange through shared memory behind the group's own
-//     named barrier (two slots by row parity): no __syncthreads in the row loop.
-//     With 16-byte loads the next row's h and dy (and dh2) fly by cp.async into
-//     each thread's own shared-memory slots while this row's outputs are
-//     computed and stored: two rows a group in flight, not one.  A fixed grid of
-//     at most 256 blocks of 8 warps, whatever the card, each group striding over
-//     rows, so the sum order is the same on every card.  Each lane carries its
-//     columns' w and dw / db terms in registers across its rows; at the end the
-//     block's groups add theirs in shared memory in group order and the block
-//     writes them once; a second launch sums the blocks in block order (a warp
-//     per eighth of the blocks, 32 columns a block of threads).  The TPU kernel
-//     carried dw / db across its sequential grid in scratch; here the sums are
-//     deterministic without atomics.
+// Design, both passes on one plan for the card: a row lives in the registers
+// of a group of G warps, the fewest (a power of two, at most eight) that keep a
+// lane at V values, each lane holding NV 16-byte vectors of it (8 bf16 or 4 f32
+// a vector), vector v of the row in lane v % 32 of the group's warp v / 32 % G.
+// V is 8 in the backward (measured faster than 16 with half the warps a row)
+// and 16 in the forward (on an H100 at [4096, 1024] bf16: 0.0188 ms against
+// 0.0201 with 8, 0.0229 with 32; two warps a row, four rows a block at once).
+// Each array is read and written once, by 16-byte loads and stores (where H is
+// not a multiple of the vector or a pointer is not 16-byte aligned, by element
+// loads of columns lane, lane + 32, ... of the same 32-vector blocks).
+// Row sums are warp shuffles and, for G > 1, an exchange through shared memory
+// behind the group's own named barrier: no __syncthreads in the row loop.
+// With 16-byte loads later rows' inputs fly by cp.async into each thread's
+// own shared-memory slots while this row is finished and stored.  A fixed grid
+// of at most 256 blocks of 8 warps, whatever the card, each group striding
+// over rows, so the sum order is the same on every card and call.  Each lane
+// carries its columns' parameters in f32 registers across its rows, read once.
+//   * forward: x and residual in, h = x keep scale + residual in f32 registers;
+//     the mean (one exchange), then the centred sum of squares of the same
+//     registers (a second exchange); y and h stored from registers, h never
+//     read again.  Two rows of a group fly ahead of the one computed (one or
+//     three measured slower).  w and b of the lane's columns are loaded once,
+//     through one branch on their type;
+//   * backward: h and dy (and dh2) in; the two row sums are independent, one
+//     exchange (two slots by row parity); the next row's h and dy (and dh2)
+//     fly while this row's outputs are computed and stored.  Each lane carries
+//     its columns' w and dw / db terms in registers across its rows; at the end
+//     the block's groups add theirs in shared memory in group order and the
+//     block writes them once; a second launch sums the blocks in block order (a
+//     warp per eighth of the blocks, 32 columns a block of threads).  The TPU
+//     kernel carried dw / db across its sequential grid in scratch; here the
+//     sums are deterministic without atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kMaxThreads = 256;
 constexpr int kMaxH = 8192;  // the wrapper's KERNEL_MAX_H
 constexpr int kF32 = 0, kBF16 = 1;
 
@@ -88,75 +94,15 @@ __device__ __forceinline__ bool keep(uint32_t seed, uint32_t row, uint32_t col, 
   return x >= thresh;
 }
 
-// Sum of `v` over the block (blockDim.x a multiple of 32), the same value in
-// every thread; `red` holds one word a warp.  Fixed order: bit-reproducible.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // `red` is no longer read by an earlier call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  return t;
-}
-
-inline int block_threads(int H) {
-  const int t = (H + 31) / 32 * 32;
-  return t < kMaxThreads ? t : kMaxThreads;
-}
-
 // ---------------------------------------------------------------------------
-// forward: one block per row
+// rows in the registers of a group of warps: the parts of both passes
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-dal_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const void* __restrict__ w,
-               const void* __restrict__ b, T* __restrict__ y, T* __restrict__ h,
-               float* __restrict__ mean, float* __restrict__ rstd, int H, uint32_t seed,
-               uint32_t thresh, float scale, int drop, float eps, int p_dt) {
-  extern __shared__ float hs[];  // [H]: the row of h in f32
-  __shared__ float red[32];
-  const int row = blockIdx.x;
-  const size_t base = static_cast<size_t>(row) * H;
-
-  float s = 0.f;
-  for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    float xv = to_f32(x[base + c]);
-    if (drop) xv = xv * (keep(seed, static_cast<uint32_t>(row), static_cast<uint32_t>(c), thresh) ? scale : 0.f);
-    const float hv = xv + to_f32(res[base + c]);
-    hs[c] = hv;
-    s += hv;
-  }
-  const float mu = block_sum(s, red) / static_cast<float>(H);
-  float q = 0.f;
-  for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    const float d = hs[c] - mu;
-    q += d * d;
-  }
-  const float var = block_sum(q, red) / static_cast<float>(H);
-  const float rs = rsqrtf(var + eps);
-  for (int c = threadIdx.x; c < H; c += blockDim.x) {
-    const float hv = hs[c];
-    const float xh = (hv - mu) * rs;
-    store(h + base + c, hv);
-    store(y + base + c, xh * load_param(w, c, p_dt) + load_param(b, c, p_dt));
-  }
-  if (threadIdx.x == 0) {
-    mean[row] = mu;
-    rstd[row] = rs;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: rows in the registers of a group of warps, then the dw / db sum
-// ---------------------------------------------------------------------------
-constexpr int kBwdWarps = 8;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdBlocks = 256;  // the wrapper's _BWD_BLOCKS
-constexpr int kBwdValues = 8;    // values a lane holds, unless G would pass 8 warps
+constexpr int kRowWarps = 8;
+constexpr int kRowThreads = 32 * kRowWarps;
+constexpr int kRowBlocks = 256;  // the most blocks of a launch; the wrapper's _BWD_BLOCKS
+constexpr int kRowValues = 8;    // the backward's values a lane, unless G would pass 8 warps
+constexpr int kFwdValues = 16;   // the forward's
+constexpr int kFwdAhead = 2;     // the forward's rows of a group in flight ahead of the one computed
 
 // A warp's 32 x VE columns from `blk` on, VE values a lane held as 16 bytes of
 // T: with VEC the lane's VE neighbours (one 16-byte load), else columns lane,
@@ -207,17 +153,171 @@ __device__ __forceinline__ void cp16(void* dst, const void* src) {
                : "memory");
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ void group_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the sum of v over the G warps of group grp (the same bits in all of them):
+// each warp's value through its slot in red, behind the group's barrier
+__device__ __forceinline__ float group_sum(float v, float* red, int warp, int lane, int grp,
+                                           int G) {
+  if (G == 1) return v;
+  if (lane == 0) red[warp] = v;
+  group_barrier(1 + grp, 32 * G);
+  float t = 0.f;
+  for (int k = 0; k < G; ++k) t += red[grp * G + k];
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// forward: G warps a row, NV vectors a lane; see the file's header.  Two blocks
+// an SM (128 registers a thread) up to 16 values a lane, one for the widest rows
+// ---------------------------------------------------------------------------
+template <typename T, int NV, bool VEC>
+__global__ void __launch_bounds__(kRowThreads, NV * Row<T>::VE <= 16 ? 2 : 1)
+dal_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res, const void* __restrict__ w,
+               const void* __restrict__ b, T* __restrict__ y, T* __restrict__ h,
+               float* __restrict__ mean, float* __restrict__ rstd, int rows, int H, int G,
+               uint32_t seed, uint32_t thresh, float scale, int drop, float eps, int p_dt) {
+  using R = Row<T>;
+  constexpr int VE = R::VE;
+  // with VEC each thread's own 16-byte slots of the group's next kFwdAhead
+  // rows' x and residual ([ring][array][NV][thread]), filled by cp.async while
+  // earlier rows are finished
+  extern __shared__ __align__(16) float fwd_sm[];
+  uint4* stage_s = reinterpret_cast<uint4*>(fwd_sm);
+  // the row sums of a group's warps: the sum, then the centred sum of squares
+  // (a warp's read of one slot and the next row's write of it lie on either
+  // side of the other's barrier)
+  __shared__ float red_s[2][kRowWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int groups = kRowWarps / G, grp = warp / G, wig = warp % G;
+  const int stride = gridDim.x * groups;
+
+  int blk[NV];  // the lane's warp's column blocks: 32 (wig + G j) vectors in
+#pragma unroll
+  for (int j = 0; j < NV; ++j) blk[j] = VE * 32 * (wig + G * j);
+  auto slot = [&](int r, int a, int j) {
+    return stage_s + ((r * 2 + a) * NV + j) * kRowThreads + threadIdx.x;
+  };
+  // the lane's vectors of x and residual of `row` into ring slot r, as one
+  // commit group (an empty one past the last row keeps the count)
+  auto prefetch = [&](int r, int row) {
+    if (row < rows) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int c = blk[j] + VE * lane;
+        if (c < H) {
+          cp16(slot(r, 0, j), x + static_cast<size_t>(row) * H + c);
+          cp16(slot(r, 1, j), res + static_cast<size_t>(row) * H + c);
+        }
+      }
+    }
+    cp_commit();
+  };
+  const int first = blockIdx.x * groups + grp;
+  if (VEC) {
+#pragma unroll
+    for (int r = 0; r < kFwdAhead; ++r) prefetch(r, first + r * stride);
+  }
+  // w and b of the lane's columns in f32 registers (0 past H), read once
+  float wv[NV][VE], bv[NV][VE];
+  auto load_params = [&](const auto* wp, const auto* bp) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) {
+        const int c = R::template col<VEC>(blk[j], lane, i);
+        wv[j][i] = c < H ? to_f32(wp[c]) : 0.f;
+        bv[j][i] = c < H ? to_f32(bp[c]) : 0.f;
+      }
+  };
+  if (p_dt == kF32)
+    load_params(static_cast<const float*>(w), static_cast<const float*>(b));
+  else
+    load_params(static_cast<const __nv_bfloat16*>(w), static_cast<const __nv_bfloat16*>(b));
+
+  // a slot this thread did not fill (past H) reads as 0
+  auto take = [&](int r, int a, int j) {
+    return blk[j] + VE * lane < H ? *slot(r, a, j) : make_uint4(0, 0, 0, 0);
+  };
+  int ring = 0;  // the ring slot of this row
+  for (int row = first; row < rows; row += stride) {
+    const size_t base = static_cast<size_t>(row) * H;
+    float hv[NV][VE];
+    float s1 = 0.f;
+    // h = x keep scale + residual, as the plain version rounds it; columns past
+    // H hold x = residual = 0, so h = 0 there
+    auto fill = [&](int j, const uint4& xu, const uint4& ru) {
+#pragma unroll
+      for (int i = 0; i < VE; ++i) {
+        float xv = R::get(xu, i);
+        if (drop) {
+          const int c = R::template col<VEC>(blk[j], lane, i);
+          xv = __fmul_rn(xv, keep(seed, static_cast<uint32_t>(row), static_cast<uint32_t>(c),
+                                  thresh) ? scale : 0.f);
+        }
+        hv[j][i] = __fadd_rn(xv, R::get(ru, i));
+        s1 += hv[j][i];
+      }
+    };
+    if constexpr (VEC) {
+      cp_wait<kFwdAhead - 1>();  // this row's group; later rows may fly
+#pragma unroll
+      for (int j = 0; j < NV; ++j) fill(j, take(ring, 0, j), take(ring, 1, j));
+      // the slot is consumed: a later row's x and residual fly while this row
+      // is finished and stored
+      prefetch(ring, row + kFwdAhead * stride);
+      ring = ring + 1 == kFwdAhead ? 0 : ring + 1;
+    } else {
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        fill(j, R::template load<VEC>(x + base, blk[j], lane, H),
+             R::template load<VEC>(res + base, blk[j], lane, H));
+    }
+    const float mu = group_sum(warp_sum(s1), red_s[0], warp, lane, grp, G) / static_cast<float>(H);
+    float s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int i = 0; i < VE; ++i) {
+        const int c = R::template col<VEC>(blk[j], lane, i);
+        const float d = c < H ? hv[j][i] - mu : 0.f;
+        s2 += d * d;
+      }
+    const float var = group_sum(warp_sum(s2), red_s[1], warp, lane, grp, G) / static_cast<float>(H);
+    const float rs = rsqrtf(var + eps);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float yv[VE];
+#pragma unroll
+      for (int i = 0; i < VE; ++i) yv[i] = fmaf((hv[j][i] - mu) * rs, wv[j][i], bv[j][i]);
+      R::template put<VEC>(y + base, blk[j], lane, H, yv);
+      R::template put<VEC>(h + base, blk[j], lane, H, hv[j]);
+    }
+    if (wig == 0 && lane == 0) {
+      mean[row] = mu;
+      rstd[row] = rs;
+    }
+  }
 }
 
 // G warps a row, NV vectors a lane; see the file's header.  Two blocks an SM
 // (128 registers a thread, which hold 16 values a lane with their dw / db), one
 // for the widest rows
 template <typename T, int NV, bool VEC>
-__global__ void __launch_bounds__(kBwdThreads, NV * Row<T>::VE <= 16 ? 2 : 1)
+__global__ void __launch_bounds__(kRowThreads, NV * Row<T>::VE <= 16 ? 2 : 1)
 dal_bwd_kernel(const T* __restrict__ h, const float* __restrict__ mean,
                const float* __restrict__ rstd, const void* __restrict__ w,
                const T* __restrict__ dy, const T* __restrict__ dh2, T* __restrict__ dx,
@@ -229,17 +329,17 @@ dal_bwd_kernel(const T* __restrict__ h, const float* __restrict__ mean,
   // with VEC each thread's own 16-byte slots of the next row's h, dy and dh2
   // ([array][NV][thread]), filled by cp.async while this row is computed
   uint4* stage_s = reinterpret_cast<uint4*>(sm);
-  float* w_s = sm + (VEC ? 3 * NV * kBwdThreads * 4 : 0);   // [H] w in f32
+  float* w_s = sm + (VEC ? 3 * NV * kRowThreads * 4 : 0);   // [H] w in f32
   float* sum_s = w_s + H;                                  // [2][H] the block's dw, db
-  __shared__ float red_s[2][kBwdWarps][2];  // the row sums of a group's warps, by row parity
+  __shared__ float red_s[2][kRowWarps][2];  // the row sums of a group's warps, by row parity
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int groups = kBwdWarps / G, grp = warp / G, wig = warp % G;
+  const int groups = kRowWarps / G, grp = warp / G, wig = warp % G;
   const int stride = gridDim.x * groups;
 
   int blk[NV];  // the lane's warp's column blocks: 32 (wig + G j) vectors in
 #pragma unroll
   for (int j = 0; j < NV; ++j) blk[j] = VE * 32 * (wig + G * j);
-  auto slot = [&](int a, int j) { return stage_s + (a * NV + j) * kBwdThreads + threadIdx.x; };
+  auto slot = [&](int a, int j) { return stage_s + (a * NV + j) * kRowThreads + threadIdx.x; };
   // the lane's vectors of array a (0 h, 1 dy, 2 dh2) of `row` into its slots
   auto prefetch = [&](const T* src, int a, int row) {
 #pragma unroll
@@ -255,7 +355,7 @@ dal_bwd_kernel(const T* __restrict__ h, const float* __restrict__ mean,
     if (dh2 != nullptr) prefetch(dh2, 2, first);
     cp_commit();
   }
-  for (int c = threadIdx.x; c < H; c += kBwdThreads) w_s[c] = load_param(w, c, p_dt);
+  for (int c = threadIdx.x; c < H; c += kRowThreads) w_s[c] = load_param(w, c, p_dt);
   __syncthreads();
   // the lane's columns' w in registers (0 past H), read once: reading a lane's
   // VE neighbours from shared memory every row is a 4- to 8-way bank conflict;
@@ -289,7 +389,7 @@ dal_bwd_kernel(const T* __restrict__ h, const float* __restrict__ mean,
     const int next = row + stride;
     uint4 hv[NV], gv[NV], d2[NV];
     if constexpr (VEC) {
-      cp_wait_all();
+      cp_wait<0>();
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         hv[j] = take(0, j);
@@ -388,7 +488,7 @@ dal_bwd_kernel(const T* __restrict__ h, const float* __restrict__ mean,
   }
   float* pw = part + static_cast<size_t>(blockIdx.x) * H;
   float* pb = part + static_cast<size_t>(gridDim.x + blockIdx.x) * H;
-  for (int c = threadIdx.x; c < H; c += kBwdThreads) {
+  for (int c = threadIdx.x; c < H; c += kRowThreads) {
     pw[c] = sum_s[c];
     pb[c] = sum_s[H + c];
   }
@@ -397,22 +497,22 @@ dal_bwd_kernel(const T* __restrict__ h, const float* __restrict__ mean,
 // dw[c] = sum over blocks of part[0][blk][c], db likewise (blockIdx.y), in block
 // order: warp k sums blocks k, k + 8, ... of the block's 32 columns, then the 8
 // warps' sums are added in warp order
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kRowThreads)
 dal_bwd_reduce(const float* __restrict__ part, float* __restrict__ dw, float* __restrict__ db,
                int blocks, int H) {
-  __shared__ float s[kBwdWarps][32];
+  __shared__ float s[kRowWarps][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c = blockIdx.x * 32 + lane;
   const float* src = part + static_cast<size_t>(blockIdx.y) * blocks * H;
   float acc = 0.f;
   if (c < H)
-    for (int k = warp; k < blocks; k += kBwdWarps) acc += src[static_cast<size_t>(k) * H + c];
+    for (int k = warp; k < blocks; k += kRowWarps) acc += src[static_cast<size_t>(k) * H + c];
   s[warp][lane] = acc;
   __syncthreads();
   if (warp == 0 && c < H) {
     float t = 0.f;
 #pragma unroll
-    for (int k = 0; k < kBwdWarps; ++k) t += s[k][lane];
+    for (int k = 0; k < kRowWarps; ++k) t += s[k][lane];
     (blockIdx.y == 0 ? dw : db)[c] = t;
   }
 }
@@ -423,18 +523,37 @@ cudaError_t allow_smem(K kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const void* res, const void* w, const void* b, void* y,
-                       void* h, float* mean, float* rstd, int rows, int H, uint32_t seed,
-                       uint32_t thresh, float scale, int drop, float eps, int p_dt,
-                       cudaStream_t st) {
-  auto kern = dal_fwd_kernel<T>;
-  const size_t smem = sizeof(float) * H;
+struct FwdArgs {
+  const void *x, *res, *w, *b;
+  void *y, *h;
+  float *mean, *rstd;
+  int rows, H;
+  uint32_t seed, thresh;
+  float scale;
+  int drop;
+  float eps;
+  int p_dt;
+  cudaStream_t st;
+};
+
+// blocks of a launch: enough for every group of warps to have a row, at most
+// kRowBlocks
+int row_blocks(int rows, int G) {
+  const int groups = kRowWarps / G;
+  const int need = (rows + groups - 1) / groups;
+  return need < kRowBlocks ? need : kRowBlocks;
+}
+
+template <typename T, int NV, bool VEC>
+cudaError_t launch_fwd(const FwdArgs& a, int G) {
+  auto kern = dal_fwd_kernel<T, NV, VEC>;
+  const size_t smem = VEC ? kFwdAhead * 2 * NV * kRowThreads * 16 : 0;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<rows, block_threads(H), smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), w, b, static_cast<T*>(y),
-      static_cast<T*>(h), mean, rstd, H, seed, thresh, scale, drop, eps, p_dt);
+  kern<<<row_blocks(a.rows, G), kRowThreads, smem, a.st>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.res), a.w, a.b, static_cast<T*>(a.y),
+      static_cast<T*>(a.h), a.mean, a.rstd, a.rows, a.H, G, a.seed, a.thresh, a.scale, a.drop,
+      a.eps, a.p_dt);
   return cudaGetLastError();
 }
 
@@ -453,44 +572,42 @@ struct BwdArgs {
 template <typename T, int NV, bool VEC>
 cudaError_t launch_bwd(const BwdArgs& a, int G) {
   auto kern = dal_bwd_kernel<T, NV, VEC>;
-  const size_t smem = sizeof(float) * 3 * a.H + (VEC ? 3 * NV * kBwdThreads * 16 : 0);
+  const size_t smem = sizeof(float) * 3 * a.H + (VEC ? 3 * NV * kRowThreads * 16 : 0);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  const int groups = kBwdWarps / G;
-  const int need = (a.rows + groups - 1) / groups;
-  const int blocks = need < kBwdBlocks ? need : kBwdBlocks;
-  kern<<<blocks, kBwdThreads, smem, a.st>>>(
+  const int blocks = row_blocks(a.rows, G);
+  kern<<<blocks, kRowThreads, smem, a.st>>>(
       static_cast<const T*>(a.h), a.mean, a.rstd, a.w, static_cast<const T*>(a.dy),
       static_cast<const T*>(a.dh2), static_cast<T*>(a.dx), static_cast<T*>(a.dres), a.part, a.rows,
       a.H, G, a.seed, a.thresh, a.scale, a.drop, a.p_dt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dal_bwd_reduce<<<dim3((a.H + 31) / 32, 2), kBwdThreads, 0, a.st>>>(a.part, a.dw, a.db, blocks,
+  dal_bwd_reduce<<<dim3((a.H + 31) / 32, 2), kRowThreads, 0, a.st>>>(a.part, a.dw, a.db, blocks,
                                                                      a.H);
   return cudaGetLastError();
 }
 
 // G, the warps a row: the fewest (a power of two, at most 8) that keep a lane at
-// kBwdValues values; NV, the vectors a lane then holds (up to 4 for bf16 and 8
-// for float32 rows wider than 2048)
-template <typename T, bool VEC>
-cudaError_t bwd_by_width(const BwdArgs& a) {
+// `values` values; NV, the vectors a lane then holds (up to 4 for bf16 and 8
+// for float32 rows wider than 2048).  Calls f(integral_constant<NV>, G).
+template <typename T, typename F>
+cudaError_t by_width(int H, int values, F&& f) {
   constexpr int VE = Row<T>::VE;
   int G = 1;
-  while (G < kBwdWarps && G * 32 * kBwdValues < a.H) G *= 2;
-  const int nv = (a.H + G * 32 * VE - 1) / (G * 32 * VE);
+  while (G < kRowWarps && G * 32 * values < H) G *= 2;
+  const int nv = (H + G * 32 * VE - 1) / (G * 32 * VE);
   switch (nv) {
-    case 1: return launch_bwd<T, 1, VEC>(a, G);
-    case 2: return launch_bwd<T, 2, VEC>(a, G);
-    case 3: return launch_bwd<T, 3, VEC>(a, G);
-    case 4: return launch_bwd<T, 4, VEC>(a, G);
+    case 1: return f(std::integral_constant<int, 1>(), G);
+    case 2: return f(std::integral_constant<int, 2>(), G);
+    case 3: return f(std::integral_constant<int, 3>(), G);
+    case 4: return f(std::integral_constant<int, 4>(), G);
   }
   if constexpr (VE == 4) {
     switch (nv) {
-      case 5: return launch_bwd<T, 5, VEC>(a, G);
-      case 6: return launch_bwd<T, 6, VEC>(a, G);
-      case 7: return launch_bwd<T, 7, VEC>(a, G);
-      case 8: return launch_bwd<T, 8, VEC>(a, G);
+      case 5: return f(std::integral_constant<int, 5>(), G);
+      case 6: return f(std::integral_constant<int, 6>(), G);
+      case 7: return f(std::integral_constant<int, 7>(), G);
+      case 8: return f(std::integral_constant<int, 8>(), G);
     }
   }
   return cudaErrorInvalidValue;
@@ -499,11 +616,24 @@ cudaError_t bwd_by_width(const BwdArgs& a) {
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T>
+cudaError_t launch_fwd_dtype(const FwdArgs& a) {
+  const bool vec = a.H % Row<T>::VE == 0 && aligned16(a.x) && aligned16(a.res) &&
+                   aligned16(a.y) && aligned16(a.h);
+  return by_width<T>(a.H, kFwdValues, [&](auto nv, int G) {
+    return vec ? launch_fwd<T, decltype(nv)::value, true>(a, G)
+               : launch_fwd<T, decltype(nv)::value, false>(a, G);
+  });
+}
+
+template <typename T>
 cudaError_t launch_bwd_dtype(const BwdArgs& a) {
   const bool vec = a.H % Row<T>::VE == 0 && aligned16(a.h) && aligned16(a.dy) &&
                    aligned16(a.dx) && aligned16(a.dres) &&
                    (a.dh2 == nullptr || aligned16(a.dh2));
-  return vec ? bwd_by_width<T, true>(a) : bwd_by_width<T, false>(a);
+  return by_width<T>(a.H, kRowValues, [&](auto nv, int G) {
+    return vec ? launch_bwd<T, decltype(nv)::value, true>(a, G)
+               : launch_bwd<T, decltype(nv)::value, false>(a, G);
+  });
 }
 
 bool bad_type(int dt) { return dt != kF32 && dt != kBF16; }
@@ -518,14 +648,10 @@ extern "C" int prt_dal_fwd(const void* x, const void* res, const void* w, const 
                            int p_dtype, void* stream) {
   if (rows <= 0 || H <= 0 || H > kMaxH || bad_type(dtype) || bad_type(p_dtype))
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* m = static_cast<float*>(mean);
-  float* r = static_cast<float*>(rstd);
-  if (dtype == kF32)
-    return launch_fwd<float>(x, res, w, b, y, h, m, r, rows, H, seed, thresh, scale, drop, eps,
-                             p_dtype, st);
-  return launch_fwd<__nv_bfloat16>(x, res, w, b, y, h, m, r, rows, H, seed, thresh, scale, drop,
-                                   eps, p_dtype, st);
+  const FwdArgs a{x, res, w, b, y, h, static_cast<float*>(mean), static_cast<float*>(rstd),
+                  rows, H, seed, thresh, scale, drop, eps, p_dtype,
+                  static_cast<cudaStream_t>(stream)};
+  return dtype == kF32 ? launch_fwd_dtype<float>(a) : launch_fwd_dtype<__nv_bfloat16>(a);
 }
 
 // part: f32 [2, min(256, rows), H] scratch.

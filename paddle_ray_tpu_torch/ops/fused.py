@@ -47,9 +47,9 @@ __all__ = ["fused_dropout_add_layernorm", "dal_forward", "dal_backward",
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = 0xFFFFFFFF
-# the widest row the kernels take: the forward stages a row in shared
-# memory, the backward holds it in the registers of at most 8 warps (and w
-# and the block's dweight / dbias in shared memory, 12 bytes a column)
+# the widest row the kernels take: both hold a row in the registers of at
+# most 8 warps (the backward also w and the block's dweight / dbias in
+# shared memory, 12 bytes a column)
 KERNEL_MAX_H = 8192
 # the backward's rows are split over at most this many blocks (whatever the
 # card), whose partial dweight / dbias a second launch sums in a fixed order
@@ -218,8 +218,9 @@ def dal_forward(x: torch.Tensor, residual: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """Forward on ``[rows, H]``: ``(y, h, mean, rstd)``.  CUDA tensors
-    launch ``prt_dal_fwd`` (one block a row); CPU tensors run
-    :func:`dal_forward_plain`."""
+    launch ``prt_dal_fwd`` (a row in the registers of one to eight warps,
+    rows strided over at most 256 blocks: the same bits on every call and
+    card); CPU tensors run :func:`dal_forward_plain`."""
     thresh, scale = _drop_consts(p)
     if _device_kind(x) == "cpu":
         return dal_forward_plain(x, residual, weight, bias, seed, p=p,

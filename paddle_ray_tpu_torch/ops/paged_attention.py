@@ -29,7 +29,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _splitk
 
 __all__ = ["paged_ragged_attention", "paged_ragged_attention_plain",
            "paged_ragged_attention_split_plain", "paged_decode_attention",
@@ -267,29 +267,6 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-_SM_COUNT = {}
-_COUNTERS = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return _SM_COUNT[dev]
-
-
-def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The kernel's split counters for launches on ``stream`` of
-    ``dev``: zero, and left zero by every launch that runs to its end, so
-    one buffer serves every call on that stream; another stream gets its
-    own, as launches that share counters must not overlap."""
-    buf = _COUNTERS.get((dev, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
-        _COUNTERS[(dev, stream)] = buf
-    return buf
-
-
 def _tiles(q: torch.Tensor, h_kv: int) -> int:
     """The kernel's tiles of ``TILE_PAIRS`` (row, group member) pairs per
     slot and kv head."""
@@ -310,7 +287,7 @@ def kernel_plan(q: torch.Tensor, pool: Tuple, page_table: torch.Tensor,
     lengths = ([n_blocks * page] * q.shape[0] if host_lengths is None
                else host_lengths)
     return split_plan(page, n_blocks, h_kv * _tiles(q, h_kv),
-                      _sm_count(q.device), lengths,
+                      _splitk.sm_count(q.device), lengths,
                       chunk_keys(page, pool[0].dtype == torch.int8))
 
 
@@ -328,7 +305,7 @@ def _launch(lib, qs, k, v, k_s, v_s, pool, table, lengths, q_lens, out,
                              dtype=torch.float32, device=qs.device)
         ws_ml = torch.empty(units * n_splits * TILE_PAIRS * 2,
                             dtype=torch.float32, device=qs.device)
-        counters = _counters(qs.device, stream, units)
+        counters = _splitk.split_counters(qs.device, stream, units)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     return lib.prt_paged_ragged_attention(
         qs.data_ptr(), k.data_ptr(), ptr(k_s), v.data_ptr(), ptr(v_s),

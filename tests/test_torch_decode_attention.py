@@ -20,8 +20,9 @@ from paddle_ray_tpu.ops.decode_attention import (
 from paddle_ray_tpu_torch.models.generation import _kv_quant
 from paddle_ray_tpu_torch.ops import decode_attention as da
 from paddle_ray_tpu_torch.ops.decode_attention import (
-    DECODE_BLOCK_T, fused_decode_attention, fused_decode_attention_plain,
-    fused_decode_attention_q8_plain)
+    DECODE_BLOCK_T, decode_split_plan, fused_decode_attention,
+    fused_decode_attention_plain, fused_decode_attention_q8_plain,
+    fused_decode_attention_split_plain)
 
 B, H, D = 2, 3, 64
 T = 2 * DECODE_BLOCK_T
@@ -174,3 +175,104 @@ def test_validation():
     with pytest.raises(ValueError):            # no kernel for this device
         fused_decode_attention(q.to("meta"), (k.to("meta"), v.to("meta")),
                                0, scale=SCALE)
+
+
+@pytest.mark.parametrize("sm_count", [1, 16, 78, 132])
+@pytest.mark.parametrize("bh", [1, 16, 128, 512])
+def test_decode_split_plan_covers_every_row_once(bh, sm_count):
+    """``decode_split_plan`` cuts a pair's live rows into runs of whole
+    32-row groups that cover every row exactly once, none empty, never
+    more runs than groups; a card full of pairs is not split, and one
+    stream's long cache on a large card is."""
+    for n_live in (*range(1, 300), 511, 512, 513, 2047, 2048, 8192):
+        n, rps = decode_split_plan(bh, n_live, sm_count)
+        groups = -(-n_live // da.ROW_GROUP)
+        assert 1 <= n <= groups and rps % da.ROW_GROUP == 0
+        runs = [range(i * rps, min((i + 1) * rps, n_live)) for i in range(n)]
+        assert all(len(r) > 0 for r in runs)
+        assert [t for r in runs for t in r] == list(range(n_live))
+        if bh >= sm_count:
+            assert n == 1
+    assert decode_split_plan(16, 2048, 132)[0] > 1
+
+
+def _split_inputs(kind, d, seed):
+    """q and a cache of ``kind`` (f32, bf16 or q8 with float32 q) from
+    numpy, for the port and for the JAX kernel."""
+    q, k, v = _inputs(seed, d)
+    if kind == "q8":
+        jk, jv = jax_kv_quant(jnp.asarray(k)), jax_kv_quant(jnp.asarray(v))
+        kq, ks = _kv_quant(torch.from_numpy(k))
+        vq, vs = _kv_quant(torch.from_numpy(v))
+        return (torch.from_numpy(q), (kq, ks, vq, vs), jnp.asarray(q),
+                (*jk, *jv))
+    jdt, tdt = ((jnp.float32, torch.float32) if kind == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    t = lambda a: torch.from_numpy(a).to(tdt)              # noqa: E731
+    j = lambda a: jnp.asarray(a, jdt)                      # noqa: E731
+    return t(q), (t(k), t(v)), j(q), (j(k), j(v))
+
+
+@pytest.mark.parametrize("pos", [40, DECODE_BLOCK_T + 44, T - 1])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "q8"])
+@pytest.mark.parametrize("d", [64, 96])
+def test_split_plain_matches_unsplit_and_jax(d, kind, pos):
+    """The kernel's split-K in plain PyTorch, with the split the kernel
+    would take on a 132-SM card and with two uneven runs: equal to the
+    unsplit plain version within 1e-6 (float32 outputs; bfloat16 ones
+    within one rounding step) and to the Pallas kernel in interpret mode
+    within the file's tolerances."""
+    q, cache, jq, jcache = _split_inputs(kind, d, 70 + d + pos)
+    scale = d ** -0.5
+    plain = (fused_decode_attention_q8_plain if kind == "q8"
+             else fused_decode_attention_plain)
+    whole = plain(q, cache, pos, scale=scale)
+    want = np.asarray(jax_fused(jq, jcache, pos, scale=scale).astype(
+        jnp.float32))
+    tol = BF16_TOL if kind == "bf16" else F32_TOL
+    same = (dict(rtol=2.0 ** -7, atol=1e-6) if kind == "bf16"
+            else dict(rtol=1e-6, atol=1e-6))
+    plans = {decode_split_plan(B * H, pos + 1, 132),
+             (2, -(-(pos + 1) * 3 // 4 // da.ROW_GROUP) * da.ROW_GROUP)}
+    for n_splits, rps in plans:
+        got = fused_decode_attention_split_plain(
+            q, cache, pos, scale=scale, n_splits=n_splits,
+            rows_per_split=rps)
+        assert got.shape == (B, H, 1, d) and got.dtype == q.dtype
+        torch.testing.assert_close(got, whole, **same)
+        np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+def test_split_plain_refuses_empty_or_short_runs():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(80))
+    for n_splits, rps in ((0, 32), (4, 32), (1, 32), (2, 200)):
+        with pytest.raises(ValueError):
+            fused_decode_attention_split_plain(
+                q, (k, v), 70, scale=SCALE, n_splits=n_splits,
+                rows_per_split=rps)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_check_cuda_takes_generate_strided_q(q8):
+    """``generate()`` passes ``q.transpose(1, 2)`` of a ``[B, 1, h, d]``
+    slice of the qkv projection; the kernel reads it through its batch and
+    head strides, so the CUDA checks take it as it lies (no copy), and
+    refuse a q whose head_dim is not contiguous."""
+    qkv = torch.zeros(B, 1, H, 3, D, dtype=torch.bfloat16)
+    q = qkv[..., 0, :].transpose(1, 2)                     # [B, H, 1, D]
+    assert q.shape == (B, H, 1, D) and not q.is_contiguous()
+    assert q.stride(-1) == 1
+    if q8:
+        kq = torch.zeros(B, H, T, D, dtype=torch.int8)
+        ks = torch.ones(B, H, T, 1)
+        cache = (kq, ks, kq, ks)
+    else:
+        k = torch.zeros(B, H, T, D, dtype=torch.bfloat16)
+        cache = (k, k)
+    da._check(q, cache, 5)
+    da._check_cuda(q, cache)
+    bad = torch.zeros(B, H, D, 2, dtype=torch.bfloat16)[..., :1].transpose(
+        -1, -2)                                            # d stride 2
+    assert bad.shape == q.shape and bad.stride(-1) == 2
+    with pytest.raises(ValueError, match="contiguous"):
+        da._check_cuda(bad, cache)

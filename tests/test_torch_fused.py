@@ -273,3 +273,59 @@ def test_cpu_tensors_launch_no_kernel_and_bad_args_raise():
         fused.fused_dropout_add_layernorm(*ts, p=1.0, rng=_key(0)[1])
     with pytest.raises(ValueError):
         fused.fused_dropout_add_layernorm(*ts, training=False, block_rows=0)
+
+
+def _fwd_named(rows, h, dtype=torch.bfloat16, p_dtype=torch.bfloat16,
+               **change):
+    """The forward kernel's arguments as ``_check_cuda`` takes them, CPU
+    tensors; ``change`` replaces some by name."""
+    t = {"x": torch.zeros(rows, h, dtype=dtype),
+         "residual": torch.zeros(rows, h, dtype=dtype),
+         "weight": torch.ones(h, dtype=p_dtype),
+         "bias": torch.zeros(h, dtype=p_dtype)}
+    t.update(change)
+    return list(t.items())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 7, 768, 1020, 1022, 1024,
+                               fused.KERNEL_MAX_H])
+def test_check_cuda_takes_every_width_and_type(h, p_dtype, dtype):
+    """The forward kernel takes what it took when it staged a row in
+    shared memory: every 0 < H <= 8192, float32 or bfloat16 rows, float32
+    or bfloat16 parameters (checked before any launch)."""
+    assert fused.KERNEL_MAX_H == 8192
+    fused._check_cuda(_fwd_named(3, h, dtype, p_dtype))
+
+
+@pytest.mark.parametrize("case, error", [
+    ("wider", ValueError), ("half_rows", TypeError),
+    ("mixed_params", TypeError), ("residual_dtype", ValueError),
+    ("strided_x", ValueError), ("strided_residual", ValueError),
+    ("one_dim", ValueError), ("no_rows", ValueError),
+    ("short_weight", ValueError)])
+def test_check_cuda_refuses_what_the_kernel_never_took(case, error):
+    """Wider rows than ``KERNEL_MAX_H``, another row type, parameters of
+    two types, a residual of another type, rows that are not contiguous,
+    a tensor that is not ``[rows, H]``, no rows, a weight of another width:
+    each raises before any launch."""
+    wide = torch.zeros(4, 2 * 64)
+    named = {
+        "wider": lambda: _fwd_named(2, fused.KERNEL_MAX_H + 1),
+        "half_rows": lambda: _fwd_named(2, 64, torch.float16),
+        "mixed_params": lambda: _fwd_named(2, 64, bias=torch.zeros(64)),
+        "residual_dtype": lambda: _fwd_named(
+            2, 64, residual=torch.zeros(2, 64)),
+        "strided_x": lambda: _fwd_named(
+            4, 64, torch.float32, x=wide[:, ::2]),
+        "strided_residual": lambda: _fwd_named(
+            4, 64, torch.float32, residual=torch.zeros(64, 4).t()),
+        "one_dim": lambda: _fwd_named(
+            2, 64, x=torch.zeros(128, dtype=torch.bfloat16)),
+        "no_rows": lambda: _fwd_named(0, 64),
+        "short_weight": lambda: _fwd_named(
+            2, 64, weight=torch.ones(32, dtype=torch.bfloat16)),
+    }[case]()
+    with pytest.raises(error):
+        fused._check_cuda(named)

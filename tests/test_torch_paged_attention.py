@@ -18,7 +18,7 @@ import torch
 
 from paddle_ray_tpu.ops.paged_attention import (
     paged_decode_attention as jax_decode, paged_ragged_attention as jax_ragged)
-from paddle_ray_tpu_torch.ops import paged_attention as pa
+from paddle_ray_tpu_torch.ops import _splitk, paged_attention as pa
 from paddle_ray_tpu_torch.ops.paged_attention import (
     chunk_keys, paged_decode_attention, paged_ragged_attention,
     paged_ragged_attention_plain, paged_ragged_attention_split_plain,
@@ -380,7 +380,7 @@ def test_q8_plan_is_split_plan_over_the_calls_tiles(chunk, group, host,
     group member) pairs per kv head and the pool's chunk, every slot at
     the table's width when no host lengths are given."""
     h_kv, n_blocks, sms, page = 2, 8, 132, 64
-    monkeypatch.setitem(pa._SM_COUNT, torch.device("cpu"), sms)
+    monkeypatch.setitem(_splitk._SM_COUNT, torch.device("cpu"), sms)
     q = torch.zeros(4, chunk, h_kv * group, D)
     tiles = -(-chunk * group // pa.TILE_PAIRS)
     table = torch.zeros(4, n_blocks, dtype=torch.int32)
@@ -446,10 +446,11 @@ def test_split_merge_over_a_pool_in_q_dtype_matches_unsplit_and_jax(group):
 def test_split_counters_per_stream(monkeypatch):
     """Calls on two streams get two counter buffers, each zero, and one
     stream keeps its buffer (the kernel leaves it zero)."""
-    monkeypatch.setattr(pa, "_COUNTERS", {})
+    monkeypatch.setattr(_splitk, "_COUNTERS", {})
     dev = torch.device("cpu")
-    a, b = pa._counters(dev, 1, 16), pa._counters(dev, 2, 16)
+    a, b = (_splitk.split_counters(dev, 1, 16),
+            _splitk.split_counters(dev, 2, 16))
     assert a.data_ptr() != b.data_ptr()
     assert not a.any() and not b.any()
-    assert pa._counters(dev, 1, 16).data_ptr() == a.data_ptr()
-    assert pa._counters(dev, 1, 8192).numel() >= 8192
+    assert _splitk.split_counters(dev, 1, 16).data_ptr() == a.data_ptr()
+    assert _splitk.split_counters(dev, 1, 8192).numel() >= 8192

@@ -21,7 +21,8 @@ other.  Each turn builds its tree's kernels and times them with its tree's
   rows, widths 768, 8192 and 1020 / 1022;
 * ``decode``: ``fused_decode_attention`` at every case and position of
   ``chip_smoke.DEC_ATTN_CASES`` (bf16, float32 and int8 caches at
-  gpt3-350m's decode, bf16 and int8 at head dims 96 and 80).
+  gpt3-350m's batch-8 decode, bf16 and int8 at head dims 96 and 80, and
+  one stream at the end of a 2048-row cache, bf16, int8 and float32).
 
 The inputs of ``dal`` and ``decode`` are made from a seed by this script,
 the same in every turn.  A shape a tree's kernels refuse (a head dim it was
@@ -148,16 +149,15 @@ for name, rows, h, dtype, p, training, dh2, _ in json.loads(sys.argv[2]):
 print(json.dumps(out))
 '''
 
-# argv: the tree, this tree's DEC_ATTN_CASES (JSON), batch and cache rows
+# argv: the tree, this tree's DEC_ATTN_CASES (JSON)
 DECODE_TURN = r'''
 import importlib, json, sys, torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from paddle_ray_tpu_torch.models.generation import _kv_quant
 da = importlib.import_module("paddle_ray_tpu_torch.ops.decode_attention")
-b, t_len = json.loads(sys.argv[3])
 out = {}
-for name, kind, dtype, h, d, positions in json.loads(sys.argv[2]):
+for name, kind, dtype, b, h, d, t_len, positions in json.loads(sys.argv[2]):
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
@@ -208,8 +208,7 @@ def _dal_args() -> list:
 
 def _decode_args() -> list:
     import chip_smoke
-    return [json.dumps(chip_smoke.DEC_ATTN_CASES),
-            json.dumps([chip_smoke.GEN_BATCH, chip_smoke.DEC_CACHE_T])]
+    return [json.dumps(chip_smoke.DEC_ATTN_CASES)]
 
 
 KINDS = {"flash": (FLASH_TURN, _flash_args), "paged": (PAGED_TURN, _paged_args),
