@@ -15,8 +15,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    (``cuobjdump``) beside ptxas's registers and spills, failing if a bf16
    flash tensor-core kernel (forward, dq, dk/dv; dq at all four head dims)
    holds no ``HGMMA``, a float32 flash kernel holds one, or a paged kernel
-   with bf16 q (over an int8 or a bf16 pool) holds no ``HMMA``; the
-   decode-attention and dropout-add-LN kernels' registers and spills are
+   with bf16 q (over an int8 or a bf16 pool) holds no ``HMMA``, an
+   ``int8_matmul`` kernel (the TMA and the masked path, either output
+   type) holds no ``IGMMA`` (integer ``wgmma``) or a bf16
+   ``int8_stream_matmul`` kernel no ``HMMA``; the decode-attention,
+   dropout-add-LN and both int8 matmuls' kernels' registers and spills are
    reported beside them.
 3. kernel  -- the paged-attention kernel against its plain PyTorch
    version at the shapes the serving path gives it (float32
@@ -52,8 +55,17 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    cache (bfloat16 and int8), where the kernel splits each pair's rows;
    each case the same bits in two calls, with the split plan it used; and
    ``int8_stream_matmul`` at gpt3-350m's decode shapes (8 rows x 1024->3072,
-   1024->1024, 1024->4096, 4096->1024, the 1024->50304 head), float32 and
-   N = 97; each timed beside its bound and one library call.
+   1024->1024, 1024->4096, 4096->1024, the 1024->50304 head), float32,
+   N = 97, 1 and 128 rows, each the same bits in two calls with its split
+   plan, float32 besides within ``STREAM_SPLIT_TOL`` of the plain
+   split-and-merge at that plan; each timed beside its bound and one
+   library call.
+5b. int8_one_call -- the device kernels of one call under
+   ``torch.profiler`` (counted between two marker kernels on the stream,
+   see ``profiled``): ``int8_stream_matmul`` (gpt3-350m's qkv, bf16
+   bias) its own kernel alone; a bf16 ``QuantizedLinear`` (1024->4096,
+   bf16 bias, 8 x 512 rows) one ``int8_matmul`` kernel besides the
+   per-tensor quantize, no bias or cast pass; run again after ``qat``.
 6. serve   -- GPT-3 350m (bf16, random weights from seed 0) served by the
    port's ``ServingEngine`` through the 12-request mixed-length workload
    of ``bench.py:bench_serving``; every request must return its full
@@ -72,7 +84,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    prompt 128, 256 new tokens, (a) bf16 ``generate()`` and (b)
    ``quantize_for_decode`` + ``kv_cache_dtype="int8"``; one warm-up and two
    timed calls each, with launch counts per call, then a short call of each
-   under ``torch.profiler``.
+   under ``torch.profiler``, where the int8 call's ``int8_stream_matmul``
+   kernels must number its launches (one kernel a call, no second merging
+   kernel).
 10. generate_check -- 4-layer float32 models of GPT-3 350m's and
    gpt3-760m's widths (head dims 64 and 96): the kernels' greedy tokens
    against ``fused_attention=False`` (dense and int8 KV) and the paged
@@ -156,15 +170,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    losses finite and falling, 48 launches each of the dropout-add-LN
    kernels and 24 of each flash kernel a step; tokens/s and one profiled
    step.
-20. int8_mm_kernel -- the int8 matmul kernel against
-   ``int8_matmul_plain`` on random int8 values and positive scales,
-   ``torch.equal`` in every case: the fused encoder's four linears at M =
-   8 x 512 (1024->3072, 1024->1024, 1024->4096, 4096->1024) and
-   gpt3-350m's fc1 at 8192 rows, each timed beside its bound, the plain
-   version and ``torch._int_mm`` followed by the two scale products (and
-   ``torch._int_mm``'s int32 product alone);
-   bfloat16 output, the ``QuantizedLinear`` form (``x_scale = 1``),
-   ragged M = 4093, N = 97 or 1000, K = 1000 or 1040.
+20. int8_mm_kernel -- the int8 matmul kernel (on the K-major weight, as
+   ``QuantizedLinear`` keeps it) against ``int8_matmul_plain`` on random
+   int8 values and positive scales, ``torch.equal`` and the same bits in
+   two calls in every case: the fused encoder's four linears at M = 8 x
+   512 (1024->3072, 1024->1024, 1024->4096, 4096->1024) and gpt3-350m's
+   fc1 at 8192 rows, each timed beside its bound, the plain version and
+   ``torch._int_mm`` followed by the two scale products (and
+   ``torch._int_mm``'s int32 product alone); the four linears again in
+   the ``QuantizedLinear`` form with a bfloat16 bias and a bfloat16 output
+   (no x scale, the bias added before the cast), timed beside
+   ``(torch._int_mm(xq, w).float() * w_scale + bias).to(bfloat16)``;
+   bfloat16 output, the float32 ``QuantizedLinear`` form, ragged M = 4093,
+   N = 97 or 1000, K = 1000 or 1040 (K 1000 and 5 x 37 x 3 take the
+   masked path), each timed.
 21. ptq_encoder -- ``encoder_train``'s 24-layer stack (same seed, bf16)
    in eval mode, batch 8 of 512 with the padding mask: one warm-up and 5
    timed forwards under ``torch.no_grad()`` in bf16, then
@@ -227,6 +246,11 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # most 2^-7 (0.0078) of the row's largest value; the tensor cores' bf16 P
 # moves the unrounded value far less than that
 PAGED_BF16_REL_TOL = 1e-2
+# int8_stream_matmul with float32 x against its plain split-and-merge twin
+# at the kernel's own split plan, max|err| / max|ref|: the same runs of K
+# summed in float32, so only summation order within a run and the final
+# roundings differ (a few ulps of the largest output)
+STREAM_SPLIT_TOL = 1e-6
 
 MODEL = "gpt3-350m"
 PAGE, MAX_BATCH, SEED = 64, 8, 0
@@ -262,8 +286,14 @@ PTQ_TIMED, QAT_LAYERS, QAT_STEPS = 5, 4, 5
 PTQ_CHECK_TOL = 0.05
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.perf_counter() - _START, 1)}),
+          flush=True)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, flush="zero") -> float:
@@ -300,6 +330,73 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, flush="zero") -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# idle seconds on each side of a profiled call (see ``profiled``)
+PROFILE_GAP_S = 0.2
+# the kernel ``torch.cuda._sleep`` launches: ``profiled`` puts one on the
+# stream on each side of the measured call, of this many cycles
+MARKER, MARKER_CYCLES = "spin_kernel", 1000
+# profiles ``profiled`` takes at most before it gives up on the markers
+PROFILE_ATTEMPTS = 3
+
+
+def profiled(fn, on_active=None):
+    """``torch.profiler`` over one call of ``fn`` (CPU and CUDA activity),
+    after a warm-up call under the profiler that it discards, with a
+    marker kernel on the stream on each side of the measured call and the
+    device idle for ``PROFILE_GAP_S`` before and after it.  The measured
+    call's device kernels are those that ran between the two markers
+    (:func:`marked_rows`): stream order, not the profiler's window, sets
+    them apart from the warm-up call's.  The profiler keeps the device
+    kernels that fall inside its window by their timestamps, and late in a
+    long run of this script on an NVIDIA H100 it dropped a window's first
+    kernels or all of a short one, or took in the warm-up call's last
+    ones: a profile that lacks a marker is taken again,
+    ``PROFILE_ATTEMPTS`` times at most.  ``on_active`` runs just before the measured call.  Returns
+    ``(prof, rows, attempts)``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for active in (False, True):
+                if active:
+                    time.sleep(PROFILE_GAP_S)
+                    if on_active is not None:
+                        on_active()
+                    torch.cuda._sleep(MARKER_CYCLES)
+                fn()
+                if active:
+                    torch.cuda._sleep(MARKER_CYCLES)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_GAP_S)
+                prof.step()
+        rows = marked_rows(prof)
+        if rows is not None:
+            return prof, rows, attempt
+    raise AssertionError(f"torch.profiler kept both marker kernels in none "
+                         f"of {PROFILE_ATTEMPTS} profiles")
+
+
+def marked_rows(prof):
+    """(name, device us, calls) of the device kernels that ran between the
+    two marker kernels of a :func:`profiled` call, or None if the profile
+    does not hold exactly two markers."""
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.name.startswith("ProfilerStep")),
+                 key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(dev) if MARKER in e.name]
+    if len(marks) != 2:
+        return None
+    rows = {}
+    for e in dev[marks[0] + 1:marks[1]]:
+        t, c = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    return [(k, t, c) for k, (t, c) in rows.items()]
 
 
 def kernel_rows(prof):
@@ -417,9 +514,29 @@ def _row_short(mangled):
     return m.group(0) if m else None
 
 
+# int8_matmul_kernel<kTma, T> and int8_stream_matmul_kernel<T, kVec>
+_INT8_NAME = re.compile(r"int8_matmul_kernelILb([01])E(f|13__nv_bfloat16)E")
+_STREAM_NAME = re.compile(r"int8_stream_matmul_kernelI(f|13__nv_bfloat16)Lb([01])EE")
+
+
+def _int8_short(mangled):
+    m = _INT8_NAME.search(mangled)
+    if m:
+        tma, t = m.groups()
+        return (f"int8_matmul_kernel<{'tma' if tma == '1' else 'masked'},"
+                f"{'float' if t == 'f' else 'bf16'}>")
+    m = _STREAM_NAME.search(mangled)
+    if m:
+        t, vec = m.groups()
+        return (f"int8_stream_matmul_kernel<{'float' if t == 'f' else 'bf16'},"
+                f"{'vec' if vec == '1' else 'masked'}>")
+    return None
+
+
 def _sass_counts(library, log, short, out_name) -> dict:
     """Each kernel's tensor-core instructions in the built library's SASS
-    (``cuobjdump --dump-sass``: ``HGMMA`` is wgmma, ``HMMA`` mma.sync) and
+    (``cuobjdump --dump-sass``: ``HGMMA`` is wgmma, ``IGMMA`` integer wgmma,
+    ``HMMA`` mma.sync) and
     its instruction count, beside ptxas's registers and spills from the
     build log (which holds them only when the library was built in this
     run); the MMA lines go to ``OUT_DIR/<out_name>``.  None without
@@ -447,13 +564,14 @@ def _sass_counts(library, log, short, out_name) -> dict:
         if "Function :" in line:
             name = short(line.split("Function :")[1].strip())
             if name:
-                kernels.setdefault(name, {}).update(hgmma=0, hmma=0,
+                kernels.setdefault(name, {}).update(hgmma=0, igmma=0, hmma=0,
                                                     instructions=0)
                 kept.append(line)
         elif name and line.lstrip().startswith("/*") and ";" in line:
             kernels[name]["instructions"] += 1
             if "MMA" in line:
                 kernels[name]["hgmma"] += "HGMMA" in line
+                kernels[name]["igmma"] += "IGMMA" in line
                 kernels[name]["hmma"] += "HMMA" in line
                 kept.append(line)
     with open(os.path.join(OUT_DIR, out_name), "w") as f:
@@ -463,12 +581,14 @@ def _sass_counts(library, log, short, out_name) -> dict:
 
 
 def _sass_check(logs: dict) -> None:
-    """The flash kernels' and the paged kernel's SASS.  Fails if a bf16
-    flash tensor-core kernel (the forward, dq and dk/dv) holds no
-    ``HGMMA`` or a float32 flash kernel holds one, if any of the four head
-    dims lacks a bf16 dq tensor-core kernel, or if a paged kernel with
-    bf16 q (over an int8 or a bf16 pool) holds no ``HMMA`` (its prefill
-    tiles' ``mma.sync``)."""
+    """The flash kernels', the paged kernel's and the int8 matmuls' SASS.
+    Fails if a bf16 flash tensor-core kernel (the forward, dq and dk/dv)
+    holds no ``HGMMA`` or a float32 flash kernel holds one, if any of the
+    four head dims lacks a bf16 dq tensor-core kernel, if a paged kernel
+    with bf16 q (over an int8 or a bf16 pool) holds no ``HMMA`` (its
+    prefill tiles' ``mma.sync``), if an ``int8_matmul`` kernel (TMA or
+    masked path, float32 or bf16 output) holds no ``IGMMA``, or if an
+    ``int8_stream_matmul`` kernel for bf16 x holds no ``HMMA``."""
     kernels = _sass_counts("flash_attention", logs["flash_attention"],
                            _flash_short, "sass_flash_mma.txt")
     paged = _sass_counts("paged_attention", logs["paged_attention"],
@@ -476,7 +596,10 @@ def _sass_check(logs: dict) -> None:
     for library in ("decode_attention", "fused"):
         _sass_counts(library, logs[library], _row_short,
                      f"sass_{library}_mma.txt")
-    if kernels is None or paged is None:
+    int8 = {library: _sass_counts(library, logs[library], _int8_short,
+                                  f"sass_{library}_mma.txt")
+            for library in ("int8_matmul", "decode_matmul")}
+    if kernels is None or paged is None or None in int8.values():
         return
     tc = [n for n in kernels if "_tc_kernel" in n]
     without = [n for n in tc if not kernels[n].get("hgmma")]
@@ -495,6 +618,15 @@ def _sass_check(logs: dict) -> None:
         raise AssertionError(f"paged kernels with bf16 q without HMMA in "
                              f"their SASS: {no_hmma}; pools with bf16 q "
                              f"found: {sorted(kinds)}")
+    mm, stream = int8["int8_matmul"], int8["decode_matmul"]
+    no_igmma = [n for n, k in mm.items() if not k.get("igmma")]
+    no_hmma = [n for n, k in stream.items()
+               if "<bf16," in n and not k.get("hmma")]
+    if no_igmma or len(mm) != 4 or no_hmma or len(stream) != 4:
+        raise AssertionError(
+            f"int8 SASS: int8_matmul kernels without IGMMA {no_igmma} (of "
+            f"{sorted(mm)}), bf16 int8_stream_matmul kernels without HMMA "
+            f"{no_hmma} (of {sorted(stream)})")
 
 
 # ---------------------------------------------------------------------------
@@ -1009,13 +1141,14 @@ def _decode_attention_bound(b, h, n_live, d, dtype, q8) -> dict:
             "bytes": n_bytes, "ops": ops}
 
 
-def _matmul_bound(b, k, n, dtype, bias) -> dict:
-    """Least time: x, the int8 weight, the scales (and bias) read once, the
-    output written once; 2 * B * K * N operations over the peak for x's
-    type."""
+def _matmul_bound(b, k, n, dtype, bias_dtype=None) -> dict:
+    """Least time: x, the int8 weight, the scales (and the bias, in its own
+    type) read once, the output written once; 2 * B * K * N operations
+    over the peak for x's type."""
     es = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = b * k * es + k * n + n * 4 + (n * 4 if bias else 0) \
-        + b * n * es
+    bias_es = 0 if bias_dtype is None else torch.tensor(
+        [], dtype=bias_dtype).element_size()
+    n_bytes = b * k * es + k * n + n * 4 + n * bias_es + b * n * es
     ops = 2 * b * k * n
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -1122,38 +1255,79 @@ def _decode_attention_cases():
     return results
 
 
-def _matmul_cases():
-    from paddle_ray_tpu_torch.ops.decode_matmul import (
-        int8_stream_matmul, int8_stream_matmul_plain)
-    from paddle_ray_tpu_torch.quantization import quantize_per_channel
+ONE_CALL_REPEATS = 4
+
+
+def _one_call_kernels(fn) -> tuple:
+    """The device kernels of one call of ``fn``: ``ONE_CALL_REPEATS``
+    calls under ``torch.profiler``, as (name, calls a call), and the
+    profiles :func:`profiled` took; a kernel not launched the same number
+    of times in every call raises."""
+    _, rows, attempts = profiled(
+        lambda: [fn() for _ in range(ONE_CALL_REPEATS)])
+    if not rows or any(c % ONE_CALL_REPEATS for _, _, c in rows):
+        raise AssertionError(f"{ONE_CALL_REPEATS} calls ran the device "
+                             f"kernels {[(k[:60], c) for k, _, c in rows]}")
+    return [(k, c // ONE_CALL_REPEATS) for k, _, c in rows], attempts
+
+
+def matmul_cases() -> list:
+    """``int8_stream_matmul``'s cases: (name, rows, K, N, bias, x dtype)."""
     cases = [(name, GEN_BATCH, k, n, bias, torch.bfloat16)
              for name, k, n, bias in DEC_LINEARS]
-    cases += [("out_no_bias", GEN_BATCH, 1024, 1024, False, torch.bfloat16),
-              ("n97", GEN_BATCH, 1024, 97, True, torch.bfloat16),
-              ("qkv_f32", GEN_BATCH, 1024, 3072, True, torch.float32),
-              ("rows1", 1, 1024, 4096, True, torch.bfloat16),
-              ("rows128", 128, 1024, 1024, True, torch.bfloat16)]
+    return cases + [
+        ("out_no_bias", GEN_BATCH, 1024, 1024, False, torch.bfloat16),
+        ("n97", GEN_BATCH, 1024, 97, True, torch.bfloat16),
+        ("qkv_f32", GEN_BATCH, 1024, 3072, True, torch.float32),
+        ("rows1", 1, 1024, 4096, True, torch.bfloat16),
+        ("rows128", 128, 1024, 1024, True, torch.bfloat16)]
+
+
+def matmul_inputs(b, k, n, with_bias, dtype):
+    """``(x, w_q, scale, bias)`` from ``SEED`` at gpt3-350m-like magnitudes:
+    weights N(0, 0.02) quantized per channel, activations of unit scale
+    (half for the 4096-wide fc2 input), a bias in x's dtype."""
+    from paddle_ray_tpu_torch.quantization import quantize_per_channel
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    w = 0.02 * torch.randn(k, n, generator=g, device="cuda")
+    w_q, scale = quantize_per_channel(w, axis=1)
+    x = (torch.randn(b, k, generator=g, device="cuda")
+         * (0.5 if k > 1024 else 1.0)).to(dtype)
+    bias = (0.02 * torch.randn(n, generator=g, device="cuda")).to(dtype) \
+        if with_bias else None
+    return x, w_q, scale.reshape(-1), bias
+
+
+def _matmul_cases():
+    from paddle_ray_tpu_torch.ops.decode_matmul import (
+        int8_stream_matmul, int8_stream_matmul_plain,
+        int8_stream_matmul_split_plain, kernel_plan)
     results = {}
-    for name, b, k, n, with_bias, dtype in cases:
-        g = torch.Generator(device="cuda")
-        g.manual_seed(SEED)
-        # gpt3-350m-like magnitudes: weights N(0, 0.02), activations of
-        # unit scale (half for the 4096-wide fc2 input)
-        w = 0.02 * torch.randn(k, n, generator=g, device="cuda")
-        w_q, scale = quantize_per_channel(w, axis=1)
-        scale = scale.reshape(-1)
-        x = (torch.randn(b, k, generator=g, device="cuda")
-             * (0.5 if k > 1024 else 1.0)).to(dtype)
-        bias = (0.02 * torch.randn(n, generator=g, device="cuda")).to(dtype) \
-            if with_bias else None
+    for name, b, k, n, with_bias, dtype in matmul_cases():
+        x, w_q, scale, bias = matmul_inputs(b, k, n, with_bias, dtype)
         got = int8_stream_matmul(x, w_q, scale, bias)
+        again = int8_stream_matmul(x, w_q, scale, bias)
         torch.cuda.synchronize()
         want = int8_stream_matmul_plain(x, w_q, scale, bias)
         err = float((got.float() - want.float()).abs().max())
         tol = TOL[dtype]
-        if not (err <= tol and torch.isfinite(got).all()):
+        same = bool(torch.equal(got, again))
+        rows_per_split, n_splits = kernel_plan(b, k, n, x.device)
+        # a float32 x against the kernel's own cut of K summed run by run:
+        # the split and its merge held to float32 rounding
+        split_err = None if dtype != torch.float32 else _rel_err(
+            got, int8_stream_matmul_split_plain(
+                x, w_q, scale, bias, rows_per_split=rows_per_split))
+        if not (err <= tol and torch.isfinite(got).all() and same
+                and (split_err is None or split_err <= STREAM_SPLIT_TOL)):
             raise AssertionError(f"int8_stream_matmul {name}: max_abs_err "
-                                 f"{err} > {tol}")
+                                 f"{err} (tol {tol}), the same bits in two "
+                                 f"calls {same}, against the split plain "
+                                 f"version {split_err} (max|err| / max|ref|"
+                                 f" tolerance {STREAM_SPLIT_TOL})")
+        plan = {"rows_per_split": rows_per_split, "n_splits": n_splits,
+                "same_bits_twice": same, "split_rel_err": split_err}
 
         def library():
             y = torch.matmul(x, w_q.to(dtype)) * scale.to(dtype)
@@ -1163,7 +1337,8 @@ def _matmul_cases():
              "plain_ms": time_ms(lambda: int8_stream_matmul_plain(
                  x, w_q, scale, bias), iters=5),
              "library_ms": time_ms(library),
-             **_matmul_bound(b, k, n, dtype, with_bias)}
+             **plan, **_matmul_bound(b, k, n, dtype,
+                                     None if bias is None else bias.dtype)}
         results[name] = r
         emit("decode_kernel", kernel="int8_stream_matmul", case=name,
              shape=[b, k, n], dtype=str(dtype), bias=with_bias,
@@ -1175,6 +1350,48 @@ def _matmul_cases():
 def phase_decode_kernel() -> dict:
     return {"attention": _decode_attention_cases(),
             "matmul": _matmul_cases()}
+
+
+def phase_int8_one_call(when: str) -> None:
+    """The device kernels of one call of each int8 kernel's caller (run
+    ``when`` early, after the decode kernels, and late, after ``qat``:
+    the profiler kept a late window's kernels worst):
+    ``int8_stream_matmul`` at gpt3-350m's qkv with a bf16
+    bias must run its kernel alone (the bias read in its own type, split-K
+    merged in the launch); a bf16 ``QuantizedLinear`` of the encoder's
+    linear1 width with a bf16 bias at 8 x 512 rows must run one
+    ``int8_matmul`` kernel, which adds the bias and writes bf16 (the rest
+    are the per-tensor quantize and the scale product)."""
+    from paddle_ray_tpu_torch.ops.decode_matmul import int8_stream_matmul
+    from paddle_ray_tpu_torch.quantization import (QuantizedLinear,
+                                                   quantize_per_channel)
+    x, w_q, scale, bias = matmul_inputs(GEN_BATCH, ENC_D, 3 * ENC_D, True,
+                                        torch.bfloat16)
+    stream, stream_attempts = _one_call_kernels(
+        lambda: int8_stream_matmul(x, w_q, scale, bias))
+    if len(stream) != 1 or stream[0][1] != 1 \
+            or "int8_stream_matmul_kernel" not in stream[0][0]:
+        raise AssertionError(f"int8_stream_matmul: one call ran the device "
+                             f"kernels {stream}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 11)
+    w_qs, s = quantize_per_channel(
+        0.02 * torch.randn(ENC_D, ENC_FFN, generator=g, device="cuda"),
+        axis=1)
+    lin = QuantizedLinear(w_qs, s, (0.02 * torch.randn(
+        ENC_FFN, generator=g, device="cuda")).bfloat16())
+    h = torch.randn(ENC_BATCH * ENC_SEQ, ENC_D, generator=g,
+                    device="cuda").bfloat16()
+    with torch.no_grad():
+        layer, layer_attempts = _one_call_kernels(lambda: lin(h))
+    int8_calls = sum(c for k, c in layer if "int8_matmul_kernel" in k)
+    if int8_calls != 1:
+        raise AssertionError(f"QuantizedLinear: one call ran the device "
+                             f"kernels {layer}")
+    emit("int8_one_call", when=when, repeats=ONE_CALL_REPEATS,
+         profile_attempts=[stream_attempts, layer_attempts],
+         int8_stream_matmul_kernels=[(k[:70], c) for k, c in stream],
+         quantized_linear_kernels=[(k[:70], c) for k, c in layer])
 
 
 # ---------------------------------------------------------------------------
@@ -1811,7 +2028,6 @@ def phase_generate(model) -> dict:
     timed calls; every call must launch the kernels the path runs the
     expected number of times.  Then 16 new tokens of each under
     ``torch.profiler``, beside the same call unprofiled."""
-    from torch.profiler import ProfilerActivity, profile
     from paddle_ray_tpu_torch.models import generate, quantize_for_decode
     cfg = model.cfg
     ids = torch.from_numpy(np.random.RandomState(SEED).randint(
@@ -1865,20 +2081,33 @@ def phase_generate(model) -> dict:
         generate(m, ids, short, **kw)
         torch.cuda.synchronize()
         short_ms = 1e3 * (time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            generate(m, ids, short, **kw)
-            torch.cuda.synchronize()
-        rows = kernel_rows(prof)
+        _, rows, attempts = profiled(
+            lambda: generate(m, ids, short, **kw),
+            on_active=lambda: _reset(counters))
+        launched = _read(counters)
         device_ms = sum(t for _, t, _ in rows) / 1e3
         top = sorted(rows, key=lambda x: -x[1])[:10]
         r["profile"] = {
             "new_tokens": short, "call_ms_unprofiled": short_ms,
+            "profile_attempts": attempts,
             "device_ms": device_ms,
             "device_idle_share": 1.0 - device_ms / short_ms,
             "kernels_launched": sum(c for _, _, c in rows),
             "top_kernels": [{"name": k[:80], "ms": t / 1e3, "calls": c}
                             for k, t, c in top]}
+        if "int8_stream_matmul" in expect:
+            # one device kernel a call: no second kernel merges split-K
+            stream = [(k, t, c) for k, t, c in rows if "int8_stream" in k]
+            calls = sum(c for _, _, c in stream)
+            if calls != launched["int8_stream_matmul"] or len(stream) != 1:
+                raise AssertionError(
+                    f"generate {name}: {launched['int8_stream_matmul']} "
+                    f"int8_stream_matmul launches ran the device kernels "
+                    f"{[(k[:60], c) for k, _, c in stream]}")
+            r["profile"]["int8_stream_matmul"] = {
+                "launches": launched["int8_stream_matmul"],
+                "kernel_calls": calls,
+                "ms": sum(t for _, t, _ in stream) / 1e3}
         results[name] = r
         emit("generate", model=MODEL, config=name, batch=GEN_BATCH,
              prompt=GEN_PROMPT, new_tokens=GEN_NEW,
@@ -1908,7 +2137,6 @@ def phase_generate_b1(model) -> dict:
     the wrapper takes it from ``kernel_plan``; then the kernel's device
     time in a profiled ``GEN_B1_PROFILED``-token call as planned, and in
     one with every launch held to a single split."""
-    from torch.profiler import ProfilerActivity, profile
     from paddle_ray_tpu_torch.models import generate
     from paddle_ray_tpu_torch.ops import decode_attention as da
     cfg = model.cfg
@@ -1963,19 +2191,14 @@ def phase_generate_b1(model) -> dict:
         for mode, plan in (("split", planned), ("one_split", unsplit)):
             da.kernel_plan = plan
             try:
-                generate(model, ids, GEN_B1_PROFILED)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    generate(model, ids, GEN_B1_PROFILED)
-                    torch.cuda.synchronize()
+                _, rows, attempts = profiled(
+                    lambda: generate(model, ids, GEN_B1_PROFILED))
             finally:
                 da.kernel_plan = planned
-            rows = kernel_rows(prof)
             att = [(t, c) for k, t, c in rows
                    if "fused_decode_attention_kernel" in k]
             r[f"profile_{mode}"] = {
-                "new_tokens": GEN_B1_PROFILED,
+                "new_tokens": GEN_B1_PROFILED, "profile_attempts": attempts,
                 "device_ms": sum(t for _, t, _ in rows) / 1e3,
                 "decode_attention_ms": sum(t for t, _ in att) / 1e3,
                 "decode_attention_launches": sum(c for _, c in att)}
@@ -2106,7 +2329,6 @@ def _flash_counters():
 
 
 def phase_train() -> dict:
-    from torch.profiler import ProfilerActivity, profile
     from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
     from paddle_ray_tpu_torch.optimizer import AdamW
     from paddle_ray_tpu_torch.parallel import build_train_step
@@ -2159,14 +2381,11 @@ def phase_train() -> dict:
          flops_per_token=flops_per_token, losses=losses, **out)
 
     # one more step under the profiler: where a step's device time goes
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ts.step(batch)
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof)
+    prof, rows, attempts = profiled(lambda: ts.step(batch))
     device_ms = sum(t for _, t, _ in rows) / 1e3
     top = sorted(rows, key=lambda r: -r[1])[:8]
     emit("train_profile", steps=1, step_ms_unprofiled=step_ms,
+         profile_attempts=attempts,
          device_ms=device_ms, device_idle_share=1.0 - device_ms / step_ms,
          kernels_launched=sum(c for _, _, c in rows),
          flash_ms=sum(t for k, t, _ in rows if "flash_" in k) / 1e3,
@@ -2280,7 +2499,6 @@ def _gn_counters():
 
 
 def phase_unet_train() -> dict:
-    from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
     from paddle_ray_tpu_torch.models import (UNetConfig, build_unet,
                                              unet_loss_fn)
@@ -2340,11 +2558,7 @@ def phase_unet_train() -> dict:
          fwd_flops_per_image=fwd_flops / b, losses=losses, **out)
 
     # one more step under the profiler: where a step's device time goes
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ts.step(batch)
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof)
+    prof, rows, attempts = profiled(lambda: ts.step(batch))
     device_ms = sum(t_ for _, t_, _ in rows) / 1e3
     top = sorted(rows, key=lambda r: -r[1])[:12]
 
@@ -2363,6 +2577,7 @@ def phase_unet_train() -> dict:
         by_kind[kind] = sum(t_ for k, t_, _ in rows if k in names) / 1e3
     by_kind["other"] = device_ms - sum(by_kind.values())
     emit("unet_profile", steps=1, step_ms_unprofiled=step_ms,
+         profile_attempts=attempts,
          device_ms=device_ms, device_idle_share=1.0 - device_ms / step_ms,
          kernels_launched=sum(c for _, _, c in rows),
          device_ms_by_kind=by_kind,
@@ -2453,16 +2668,13 @@ def phase_unet_check() -> None:
 def _profile_step(step, label, step_ms, groups) -> None:
     """One more ``step()`` under ``torch.profiler``: device ms, idle
     share, launches, the top kernels and the device ms of each named
-    group of kernel-name keys."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    rows = kernel_rows(prof)
+    group of kernel-name keys (the profiler's warm-up call is one more
+    ``step()``)."""
+    prof, rows, attempts = profiled(step)
     device_ms = sum(t for _, t, _ in rows) / 1e3
     top = sorted(rows, key=lambda r: -r[1])[:10]
     emit(label, steps=1, step_ms_unprofiled=step_ms, device_ms=device_ms,
+         profile_attempts=attempts,
          device_idle_share=1.0 - device_ms / step_ms,
          kernels_launched=sum(c for _, _, c in rows),
          group_ms={name: sum(t for k, t, _ in rows
@@ -2712,12 +2924,15 @@ def phase_encoder_train() -> dict:
 # ---------------------------------------------------------------------------
 # 20. the int8 matmul kernel against its plain version
 # ---------------------------------------------------------------------------
-def _int8_bound(m, k, n, out_dtype) -> dict:
-    """The least time: the int8 operands and the float32 scales read once,
-    the output written once, over the HBM rate, against 2 M N K
-    operations over the int8 tensor-core peak; the larger of the two."""
+def _int8_bound(m, k, n, out_dtype, x_scale=True, bias_dtype=None) -> dict:
+    """The least time: the int8 operands, the float32 scales (and the
+    bias) read once, the output written once, over the HBM rate, against
+    2 M N K operations over the int8 tensor-core peak; the larger of the
+    two."""
     es = torch.tensor([], dtype=out_dtype).element_size()
-    n_bytes = m * k + k * n + 4 * m + 4 * n + m * n * es
+    n_bytes = m * k + k * n + 4 * n + m * n * es + (4 * m if x_scale else 0)
+    if bias_dtype is not None:
+        n_bytes += n * torch.tensor([], dtype=bias_dtype).element_size()
     ops = 2 * m * n * k
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[torch.int8]
@@ -2726,15 +2941,19 @@ def _int8_bound(m, k, n, out_dtype) -> dict:
             "bytes": n_bytes, "ops": ops}
 
 
-def _int8_case(name, m, k, n, out_dtype, timed, linear_form=False) -> dict:
-    """One case: the kernel (through ``int8_mm``, which takes any shape)
-    against ``int8_matmul_plain`` on the same random int8 values and
-    positive scales, ``torch.equal``; with ``timed`` the kernel, the plain
-    version and the library yardstick ``torch._int_mm`` (its B operand
-    made column-major first, outside the timing) followed by the two
-    scale products, and ``torch._int_mm``'s int32 product alone.
-    ``linear_form``: ``x_scale = 1`` and ``w_scale = s_x * s_w``, as
-    ``QuantizedLinear`` calls it."""
+def _int8_case(name, m, k, n, out_dtype, timed, linear_form=False,
+               bias_dtype=None) -> dict:
+    """One case: the kernel (through ``int8_mm`` on the K-major weight, as
+    ``QuantizedLinear`` calls it) against ``int8_matmul_plain`` on the
+    ``[K, N]`` weight, on the same random int8 values and positive scales:
+    ``torch.equal``, and the same bits in two calls.  ``linear_form``: no
+    x scale and ``w_scale = s_x * s_w``, as ``QuantizedLinear`` calls it;
+    ``bias_dtype``: a bias of that type added before the cast.  With
+    ``timed`` the kernel, the plain version and the library yardstick
+    ``torch._int_mm`` (its B operand made column-major first, outside the
+    timing) followed by the scale products (and the bias add and cast),
+    and ``torch._int_mm``'s int32 product alone, where ``torch._int_mm``
+    takes the shape (K and N multiples of 8, M above 16)."""
     from paddle_ray_tpu_torch.ops.fused import int8_matmul_plain, int8_mm
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + m + k + n)
@@ -2744,70 +2963,91 @@ def _int8_case(name, m, k, n, out_dtype, timed, linear_form=False) -> dict:
                        dtype=torch.int8)
     xs = torch.rand(m, generator=g, device="cuda") * 1e-2 + 1e-3
     ws = torch.rand(n, generator=g, device="cuda") * 1e-2 + 1e-3
+    bias = None if bias_dtype is None else (
+        0.1 * torch.randn(n, generator=g, device="cuda")).to(bias_dtype)
     if linear_form:
-        xs = torch.ones(m, device="cuda")
+        xs = None
         ws = ws * 0.0371
-    got = int8_mm(xq, wq, xs, ws, out_dtype)
-    torch.cuda.synchronize()
-    want = int8_matmul_plain(xq, wq, xs, ws, out_dtype)
-    err = float((got.float() - want.float()).abs().max())
-    if not (torch.equal(got, want) and torch.isfinite(got).all()):
-        raise AssertionError(f"int8_matmul {name}: kernel differs from the "
-                             f"plain version (max_abs_err {err})")
-    r = {"max_abs_err": err, "equal": True,
-         **_int8_bound(m, k, n, out_dtype)}
-    if timed:
-        w_cm = wq.t().contiguous().t()      # column-major, as _int_mm wants
+    wt = wq.t().contiguous()        # the K-major copy QuantizedLinear keeps
 
-        def library():
-            return (torch._int_mm(xq, w_cm).float() * xs[:, None]
-                    * ws[None, :]).to(out_dtype)
-        r.update(ms=time_ms(lambda: int8_mm(xq, wq, xs, ws, out_dtype)),
+    def kernel():
+        return int8_mm(xq, wt, xs, ws, out_dtype, bias=bias, k_major=True)
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    want = int8_matmul_plain(xq, wq, xs, ws, out_dtype, bias=bias)
+    err = float((got.float() - want.float()).abs().max())
+    same = bool(torch.equal(got, again))
+    if not (torch.equal(got, want) and torch.isfinite(got).all() and same):
+        raise AssertionError(f"int8_matmul {name}: kernel differs from the "
+                             f"plain version (max_abs_err {err}) or gives "
+                             f"other bits in a second call ({not same})")
+    r = {"max_abs_err": err, "equal": True, "same_bits_twice": same,
+         "masked_path": k % 16 != 0,
+         **_int8_bound(m, k, n, out_dtype, xs is not None, bias_dtype)}
+    if timed:
+        r.update(ms=time_ms(kernel),
                  plain_ms=time_ms(lambda: int8_matmul_plain(
-                     xq, wq, xs, ws, out_dtype), iters=5),
-                 library_ms=time_ms(library),
-                 int_mm_ms=time_ms(lambda: torch._int_mm(xq, w_cm)))
+                     xq, wq, xs, ws, out_dtype, bias=bias), iters=5),
+                 library_ms=None, int_mm_ms=None)
+        if k % 8 == 0 and n % 8 == 0 and m > 16:
+            w_cm = wq.t().contiguous().t()   # column-major, as _int_mm wants
+
+            def library():
+                y = torch._int_mm(xq, w_cm).float()
+                if xs is not None:
+                    y = y * xs[:, None]
+                y = y * ws[None, :]
+                return (y if bias is None else y + bias).to(out_dtype)
+            r.update(library_ms=time_ms(library),
+                     int_mm_ms=time_ms(lambda: torch._int_mm(xq, w_cm)))
     emit("int8_mm_kernel", case=name, shape=[m, k, n],
-         out_dtype=str(out_dtype), linear_form=linear_form, timed=timed,
+         out_dtype=str(out_dtype), linear_form=linear_form,
+         bias=None if bias_dtype is None else str(bias_dtype), timed=timed,
          library="torch._int_mm(xq, wq column-major) then * x_scale[:, "
-                 "None] * w_scale[None, :] in float32", **r)
+                 "None] * w_scale[None, :] (+ bias) in float32, cast", **r)
     return r
 
 
 def phase_int8_mm_kernel() -> dict:
     """The fused encoder's four linears at M = 8 x 512 and gpt3-350m's
-    fc1 at its training batch (timed), bfloat16 output, the
-    ``QuantizedLinear`` form, and ragged M, N and K (the byte-wise loads:
-    K not a multiple of 16; the vector loads with a half-empty last K
-    slab)."""
+    fc1 at its training batch, then the four in the ``QuantizedLinear``
+    form of the bf16 encoder (bias and output in bfloat16; the forward
+    sums these), bfloat16 output, the float32 ``QuantizedLinear`` form,
+    and ragged M, N and K (K 1000 and 5 x 37 x 3: the masked path's byte
+    loads; K 1040: TMA with a part-empty last stage), all timed."""
     m = ENC_BATCH * ENC_SEQ
     f32, bf16 = torch.float32, torch.bfloat16
     results = {}
-    for name, mm, k, n, dt, timed, form in (
-            *((lin, m, k, n, f32, True, False) for lin, k, n in ENC_LINEARS),
-            ("fc1_8192", 8192, 1024, 4096, f32, True, False),
-            ("linear1_bf16", m, ENC_D, ENC_FFN, bf16, False, False),
-            ("linear1_quantized_linear", m, ENC_D, ENC_FFN, f32, False,
-             True),
-            ("ragged_m4093_n97_k1000", m - 3, 1000, 97, f32, False, False),
+    for name, mm, k, n, dt, form, bias in (
+            *((lin, m, k, n, f32, False, None) for lin, k, n in ENC_LINEARS),
+            ("fc1_8192", 8192, 1024, 4096, f32, False, None),
+            *((f"{lin}_ql_bf16", m, k, n, bf16, True, bf16)
+              for lin, k, n in ENC_LINEARS),
+            ("linear1_bf16", m, ENC_D, ENC_FFN, bf16, False, None),
+            ("linear1_quantized_linear", m, ENC_D, ENC_FFN, f32, True, f32),
+            ("ragged_m4093_n97_k1000", m - 3, 1000, 97, f32, False, None),
             ("ragged_m4093_n97_k1000_bf16", m - 3, 1000, 97, bf16, False,
-             False),
+             None),
             ("ragged_m4093_n1000_k1040", m - 3, 1040, 1000, f32, False,
-             False),
-            ("tiny_5x37x3", 5, 37, 3, bf16, False, False)):
-        results[name] = _int8_case(name, mm, k, n, dt, timed, form)
+             None),
+            ("tiny_5x37x3", 5, 37, 3, bf16, False, None)):
+        results[name] = _int8_case(name, mm, k, n, dt, True, form, bias)
     return results
 
 
 def _int8_forward_sum(cases, layers) -> dict:
-    """One forward's ``layers`` x four int8 products: times and bounds
-    summed over the encoder cases (each launch is bounded on its own, so
+    """One forward's ``layers`` x four int8 products of the bf16 encoder
+    (the ``QuantizedLinear`` form, bias and output in bfloat16): times and
+    bounds summed over those cases (each launch is bounded on its own, so
     the forward's bound is the sum of theirs), and what sets the larger
     share of that sum."""
-    out = {key: layers * sum(cases[lin][key] for lin, _, _ in ENC_LINEARS)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by = {k: sum(cases[lin]["bound_ms"] for lin, _, _ in ENC_LINEARS
-                 if cases[lin]["bound_by"] == k)
+    form = [f"{lin}_ql_bf16" for lin, _, _ in ENC_LINEARS]
+    out = {key: layers * sum(cases[c][key] for c in form)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                       "int_mm_ms")}
+    by = {k: sum(cases[c]["bound_ms"] for c in form
+                 if cases[c]["bound_by"] == k)
           for k in ("bytes", "operations")}
     out["bound_by"] = max(by, key=by.get)
     return out
@@ -3085,6 +3325,7 @@ def main() -> None:
     kernel = phase_kernel()
     flash = phase_flash_kernel()
     decode = phase_decode_kernel()
+    phase_int8_one_call("early")
     gn = phase_gn_kernel()
     dal = phase_dal_kernel()
     g = torch.Generator(device="cuda")
@@ -3118,6 +3359,7 @@ def main() -> None:
     ptq = phase_ptq_encoder()
     phase_ptq_check()
     qat = phase_qat()
+    phase_int8_one_call("late")
     train_case = flash["train_bf16"]
     runs = {"gpt": train, "gpt760m": train_760m, "bert": bert,
             "encoder": enc}
@@ -3208,7 +3450,14 @@ def main() -> None:
                _decode_step_matmuls(decode["matmul"], n_layers),
                "one decode step of gpt3-350m at batch 8, bf16 x: 24 x "
                "(1024->3072, 1024->1024, 1024->4096, 4096->1024, with bias) "
-               "+ the 1024->50304 head, 97 launches summed"),
+               "+ the 1024->50304 head, 97 launches summed (the head "
+               f"{decode['matmul']['head']['ms']:.4f} ms against a "
+               f"{decode['matmul']['head']['bound_ms']:.4f} bound); one "
+               "launch a call: bf16 x on mma.sync m16n8k16 over the "
+               "transposed product, the int8 weight widened in registers, "
+               "streamed by 16-byte cp.async through a 4-stage ring, split-K "
+               "merged in the launch in split order; float32 x on the CUDA "
+               "cores"),
     ]
     gn_case = gn["cases"][(UNET_IMG * UNET_IMG, 320, "mod")]
     gn_shape = (f"bf16 [{UNET_BATCH}, {UNET_IMG}, {UNET_IMG}, 320], 32 "
@@ -3247,9 +3496,14 @@ def main() -> None:
         f"float32 out, [{ENC_BATCH} x {ENC_SEQ}, {ENC_D}] x [{ENC_D}, "
         f"{ENC_FFN}] (the fused encoder's linear1); the 24-layer PTQ "
         f"forward's 96 launches sum to {fwd['ms']:.4f} ms against a "
-        f"{fwd['bound_ms']:.4f} ms bound ({fwd['bound_by']}); launches: "
-        f"ptq_encoder's {ptq['launches']} and qat's {qat['launches']}; "
-        f"library_ms is torch._int_mm then the two scale products"))
+        f"{fwd['bound_ms']:.4f} ms bound ({fwd['bound_by']}; the bf16 "
+        f"QuantizedLinear form, bias and bf16 output in the launch; "
+        f"torch._int_mm alone {fwd['int_mm_ms']:.4f}, with the scales, bias "
+        f"and cast {fwd['library_ms']:.4f}); launches: ptq_encoder's "
+        f"{ptq['launches']} and qat's {qat['launches']}; wgmma m64n256k32 "
+        f"s8 on 128 x 256 tiles fed by TMA through a 4-stage mbarrier ring, "
+        f"two consumer warpgroups, the epilogue staged through shared "
+        f"memory; library_ms is torch._int_mm then the two scale products"))
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

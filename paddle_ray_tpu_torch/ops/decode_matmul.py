@@ -10,29 +10,36 @@ the JAX kernel zero-pads N to 128, which gives the same numbers as masking
 the ragged edge, as the CUDA kernel does.
 
 :func:`int8_stream_matmul` launches the hand-written CUDA kernel
-(``csrc/decode_matmul.cu``) for tensors on a CUDA device and runs
-:func:`int8_stream_matmul_plain` for tensors on the CPU.  There is no
-fallback between the two: a CUDA tensor the kernel does not take raises.
+(``csrc/decode_matmul.cu``) for tensors on a CUDA device, one launch a
+call: a bf16 x runs on the tensor cores, and where K is cut into runs
+(:func:`stream_plan`) the launch merges them itself.  For tensors on the
+CPU it runs :func:`int8_stream_matmul_plain`.  There is no fallback
+between the two: a CUDA tensor the kernel does not take raises.
+:func:`int8_stream_matmul_split_plain` is the kernel's split-and-merge in
+plain PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _splitk
 
 __all__ = ["int8_stream_matmul", "int8_stream_matmul_plain",
-           "MAX_KERNEL_ROWS", "split_k"]
+           "int8_stream_matmul_split_plain", "MAX_KERNEL_ROWS", "STAGE_K",
+           "TILE_N", "ROWS", "kernel_plan", "stream_plan"]
 
 # the largest row count the kernel takes (the JAX caller's cut-off too)
 MAX_KERNEL_ROWS = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_N = 64           # output columns per block
-_ROWS = 8              # input rows per block
-_MAX_TILE_K = 1024     # K rows per block
-_TARGET_BLOCKS = 264   # about two blocks for each of the H100's 132 SMs
+TILE_N = 128           # output columns per block
+ROWS = 8               # input rows per block
+STAGE_K = 64           # K rows per stage of the weight ring; a run is a multiple
+# a split run spans this many stages (tools/torch_stream_splits.py: shorter
+# runs pay more merging than they gain in SMs, longer ones stream too long)
+MIN_RUN_STAGES, MAX_RUN_STAGES = 2, 4
 
 
 def int8_stream_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -48,6 +55,30 @@ def int8_stream_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return y.to(x.dtype)
 
 
+def int8_stream_matmul_split_plain(x: torch.Tensor, w_q: torch.Tensor,
+                                   scale: torch.Tensor,
+                                   bias: Optional[torch.Tensor] = None, *,
+                                   rows_per_split: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's split-K: each run of
+    ``rows_per_split`` K rows summed on its own in float32, the runs added
+    in order, then ``* scale (+ bias)`` and the cast.  Equal to
+    :func:`int8_stream_matmul_plain` up to rounding."""
+    _check_shapes(x, w_q, scale, bias)
+    if rows_per_split < 1:
+        raise ValueError(f"rows_per_split must be positive, got "
+                         f"{rows_per_split}")
+    xf, wf = x.float(), w_q.float()
+    acc = torch.zeros(x.shape[0], w_q.shape[1], dtype=torch.float32,
+                      device=x.device)
+    for k0 in range(0, x.shape[1], rows_per_split):
+        run = slice(k0, k0 + rows_per_split)
+        acc = acc + torch.matmul(xf[:, run], wf[run])
+    y = acc * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
 def _check_shapes(x, w_q, scale, bias) -> None:
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} @ w_q {tuple(w_q.shape)}: "
@@ -57,23 +88,34 @@ def _check_shapes(x, w_q, scale, bias) -> None:
         raise ValueError(f"scale and bias must be [{n}]")
 
 
-def split_k(b: int, k: int, n: int):
-    """``(tile_k, splits)``: the K rows each block sums, and the number of
-    blocks K is split over, so that the grid holds about two blocks per
-    SM (tile_k a multiple of 16, at most 1024)."""
-    tiles = -(-n // _TILE_N) * -(-b // _ROWS)
-    want = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-k // 16)))
-    per_block = -(-k // want)
-    tile_k = min(_MAX_TILE_K, -(-per_block // 16) * 16)
-    return tile_k, -(-k // tile_k)
+def stream_plan(b: int, k: int, n: int, sm_count: int) -> Tuple[int, int]:
+    """``(rows_per_split, n_splits)`` of a ``[b, k] x [k, n]`` launch on a
+    card of ``sm_count`` SMs.  With at least as many blocks of ``TILE_N``
+    columns by ``ROWS`` rows as SMs, K is not cut.  Otherwise it is cut
+    into runs of ``rows_per_split`` rows (whole stages of :data:`STAGE_K`
+    rows; the last run shorter, none empty): the stages the card would
+    give each SM over all the blocks, held to :data:`MIN_RUN_STAGES` ..
+    :data:`MAX_RUN_STAGES`."""
+    tiles = -(-n // TILE_N) * -(-b // ROWS)
+    stages = -(-k // STAGE_K)
+    per = stages if tiles >= sm_count else min(
+        max(-(-stages * tiles // sm_count), MIN_RUN_STAGES), MAX_RUN_STAGES)
+    rows = per * STAGE_K
+    return rows, -(-k // rows)
+
+
+def kernel_plan(b: int, k: int, n: int, device) -> Tuple[int, int]:
+    """The plan every launch on ``device`` takes: :func:`stream_plan` on its
+    card."""
+    return stream_plan(b, k, n, _splitk.sm_count(device))
 
 
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("decode_matmul")
     fn = lib.prt_int8_stream_matmul
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.prt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.prt_cuda_error_string.restype = ctypes.c_char_p
@@ -90,11 +132,14 @@ def _check_cuda(x, w_q, scale, bias) -> None:
         raise TypeError(f"w_q must be int8, got {w_q.dtype}")
     if scale.dtype != torch.float32:
         raise TypeError(f"scale must be float32, got {scale.dtype}")
+    if bias is not None and bias.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"kernel takes a float32 or bfloat16 bias, got "
+                        f"{bias.dtype}")
     if not 0 < x.shape[0] <= MAX_KERNEL_ROWS:
         raise ValueError(f"kernel takes 1..{MAX_KERNEL_ROWS} rows, got "
                          f"{x.shape[0]}")
-    if not w_q.is_contiguous() or w_q.data_ptr() % 4:
-        raise ValueError("w_q must be contiguous and 4-byte aligned")
+    if not w_q.is_contiguous():
+        raise ValueError("w_q must be contiguous")
 
 
 def int8_stream_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -103,8 +148,8 @@ def int8_stream_matmul(x: torch.Tensor, w_q: torch.Tensor,
     """``x [B, K]`` (float32/bfloat16) ``@ w_q [K, N]`` (int8) ``* scale
     [N]`` (float32) ``(+ bias [N])`` -> ``[B, N]`` in x's dtype.
 
-    On a CUDA device this launches the CUDA kernel (B <= 128) and counts
-    the launch in ``int8_stream_matmul.launches``; on the CPU it runs
+    On a CUDA device this launches the CUDA kernel once (B <= 128) and
+    counts the launch in ``int8_stream_matmul.launches``; on the CPU it runs
     :func:`int8_stream_matmul_plain`."""
     _check_shapes(x, w_q, scale, bias)
     if x.device.type == "cpu":
@@ -116,19 +161,25 @@ def int8_stream_matmul(x: torch.Tensor, w_q: torch.Tensor,
     n = w_q.shape[1]
     xc = x.contiguous()
     sc = scale.contiguous()
-    bs = None if bias is None else bias.float().contiguous()
-    tile_k, splits = split_k(b, k, n)
-    part = (torch.empty((splits, b, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    bs = None if bias is None else bias.contiguous()
+    rows, n_splits = kernel_plan(b, k, n, x.device)
     out = torch.empty((b, n), dtype=x.dtype, device=x.device)
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        ws = counters = None
+        if n_splits > 1:
+            tiles = -(-n // TILE_N) * -(-b // ROWS)
+            ws = _splitk.split_workspace(x.device, stream,
+                                         tiles * n_splits * ROWS * TILE_N)
+            counters = _splitk.split_counters(x.device, stream, tiles)
         err = lib.prt_int8_stream_matmul(
             xc.data_ptr(), w_q.data_ptr(), sc.data_ptr(),
             None if bs is None else bs.data_ptr(),
-            None if part is None else part.data_ptr(), out.data_ptr(),
-            b, k, n, tile_k, _KERNEL_DTYPES[x.dtype], stream)
+            0 if bs is None else _KERNEL_DTYPES[bs.dtype],
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            out.data_ptr(), b, k, n, rows, _KERNEL_DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"int8_stream_matmul kernel launch failed: cudaError {err} "

@@ -24,11 +24,15 @@ entry with the JAX signature.
 :func:`int8_matmul` is ``(xq @ wq) * x_scale[:, None] * w_scale[None, :]``
 for int8 ``xq [M, K]`` and ``wq [K, N]``: int32 sums, then two float32
 products in that order, then the cast to ``out_dtype``.  It keeps the JAX
-signature and block rule; :func:`int8_mm` takes any shape (the dynamic-PTQ
-``QuantizedLinear`` calls it).  CUDA tensors launch the hand-written
-kernel of ``csrc/int8_matmul.cu`` (counted in ``int8_matmul.launches``),
-CPU tensors run :func:`int8_matmul_plain`, which sums in float64: exact
-for any K below 2**37, so its float32 rounding is the JAX kernel's.
+signature and block rule; :func:`int8_mm` takes any shape, a K-major
+``[N, K]`` weight (``k_major=True``: the layout the kernel reads, which
+``QuantizedLinear`` keeps beside its ``[K, N]`` weight), no ``x_scale``
+(ones) and a ``bias`` added in float32 before the cast -- the dynamic-PTQ
+``QuantizedLinear`` calls it so, one launch a layer.  CUDA tensors launch
+the hand-written kernel of ``csrc/int8_matmul.cu`` (``wgmma`` fed by TMA;
+counted in ``int8_matmul.launches``), CPU tensors run
+:func:`int8_matmul_plain`, which sums in float64: exact for any K below
+2**37, so its float32 rounding is the JAX kernel's.
 """
 from __future__ import annotations
 
@@ -363,31 +367,43 @@ INT8_MAX_K = 2 ** 17 - 1
 
 
 def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor,
-                      x_scale: torch.Tensor, w_scale: torch.Tensor,
-                      out_dtype: torch.dtype = torch.float32
-                      ) -> torch.Tensor:
+                      x_scale: Optional[torch.Tensor], w_scale: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32, *,
+                      bias: Optional[torch.Tensor] = None,
+                      k_major: bool = False) -> torch.Tensor:
     """Plain PyTorch version, on the CPU and on CUDA alike: the int8
     product summed in float64 (every partial sum an integer below 2**53,
-    so exact), rounded to float32, times ``x_scale[:, None]`` and then
-    ``w_scale[None, :]`` in float32, cast to ``out_dtype``."""
-    acc = (xq.double() @ wq.double()).float()
-    return (acc * x_scale.float()[:, None]
-            * w_scale.float()[None, :]).to(out_dtype)
+    so exact), rounded to float32, times ``x_scale[:, None]`` (skipped when
+    None: ones) and then ``w_scale[None, :]`` in float32, plus ``bias`` in
+    float32, cast to ``out_dtype``.  ``wq`` is ``[K, N]``, or ``[N, K]``
+    with ``k_major``."""
+    w = wq.double()
+    acc = (xq.double() @ (w.t() if k_major else w)).float()
+    if x_scale is not None:
+        acc = acc * x_scale.float()[:, None]
+    y = acc * w_scale.float()[None, :]
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
 
 
-def _check_int8(xq, wq, x_scale, w_scale, out_dtype) -> None:
-    """The checks of both paths: types, ranks, matching dims, scale
-    lengths (the JAX wrapper's inner-dim message)."""
+def _check_int8(xq, wq, x_scale, w_scale, out_dtype, bias=None,
+                k_major=False) -> None:
+    """The checks of both paths: types, ranks, matching dims, scale and
+    bias lengths (the JAX wrapper's inner-dim message)."""
     for name, t in (("xq", xq), ("wq", wq)):
         if t.dtype != torch.int8:
             raise TypeError(f"{name} must be int8, got {t.dtype}")
         if t.dim() != 2:
             raise ValueError(f"{name} must be 2-D, got {tuple(t.shape)}")
     m, k = xq.shape
-    k2, n = wq.shape
+    n, k2 = wq.shape if k_major else wq.shape[::-1]
     if k != k2:
         raise ValueError(f"inner dims mismatch: {k} vs {k2}")
-    for name, t, want in (("x_scale", x_scale, m), ("w_scale", w_scale, n)):
+    for name, t, want in (("x_scale", x_scale, m), ("w_scale", w_scale, n),
+                          ("bias", bias, n)):
+        if t is None and name != "w_scale":
+            continue
         if not t.is_floating_point():
             raise TypeError(f"{name} must be floating, got {t.dtype}")
         if tuple(t.shape) != (want,):
@@ -401,51 +417,64 @@ def _int8_lib() -> ctypes.CDLL:
     lib = _build.load("int8_matmul")
     if lib.prt_int8_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.prt_int8_matmul.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.prt_int8_matmul.argtypes = [p, p, p, p, p, i, p, i, i, i, i, p]
         lib.prt_int8_matmul.restype = ctypes.c_int
         lib.prt_int8_matmul_error_string.argtypes = [ctypes.c_int]
         lib.prt_int8_matmul_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def int8_mm(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
-            w_scale: torch.Tensor, out_dtype: torch.dtype = torch.float32
-            ) -> torch.Tensor:
-    """``(xq @ wq) * x_scale[:, None] * w_scale[None, :]`` for any ``[M,
-    K] x [K, N]``, without the JAX wrapper's block rule.  CUDA tensors
+def int8_mm(xq: torch.Tensor, wq: torch.Tensor,
+            x_scale: Optional[torch.Tensor], w_scale: torch.Tensor,
+            out_dtype: torch.dtype = torch.float32, *,
+            bias: Optional[torch.Tensor] = None,
+            k_major: bool = False) -> torch.Tensor:
+    """``(xq @ wq) * x_scale[:, None] * w_scale[None, :] (+ bias)`` for any
+    ``[M, K] x [K, N]``, without the JAX wrapper's block rule; ``wq`` is
+    ``[N, K]`` with ``k_major`` (the layout the kernel reads; a ``[K, N]``
+    weight is transposed into it inside the call), ``x_scale`` None stands
+    for ones, ``bias`` is added in float32 before the cast.  CUDA tensors
     launch ``prt_int8_matmul`` and count the launch in
     ``int8_matmul.launches``; CPU tensors run :func:`int8_matmul_plain`.
     A CUDA tensor the kernel does not take (another device, out_dtype
     other than float32 / bfloat16, an empty dim, K above
     :data:`INT8_MAX_K`, a non-contiguous operand) raises."""
-    _check_int8(xq, wq, x_scale, w_scale, out_dtype)
+    _check_int8(xq, wq, x_scale, w_scale, out_dtype, bias, k_major)
     if xq.device.type == "cpu":
-        return int8_matmul_plain(xq, wq, x_scale, w_scale, out_dtype)
+        return int8_matmul_plain(xq, wq, x_scale, w_scale, out_dtype,
+                                 bias=bias, k_major=k_major)
     if xq.device.type != "cuda":
         raise ValueError(f"no int8_matmul for device {xq.device}")
-    for name, t in (("wq", wq), ("x_scale", x_scale), ("w_scale", w_scale)):
-        if t.device != xq.device:
+    for name, t in (("wq", wq), ("x_scale", x_scale), ("w_scale", w_scale),
+                    ("bias", bias)):
+        if t is not None and t.device != xq.device:
             raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"kernel writes float32 or bfloat16, not "
                         f"{out_dtype}")
     m, k = xq.shape
-    n = wq.shape[1]
+    n = wq.shape[0] if k_major else wq.shape[1]
     if min(m, n, k) == 0 or k > INT8_MAX_K:
         raise ValueError(f"kernel takes 1 <= M, N and 1 <= K <= "
                          f"{INT8_MAX_K}, got M={m}, N={n}, K={k}")
     if not (xq.is_contiguous() and wq.is_contiguous()):
         raise ValueError("xq and wq must be contiguous (row-major)")
-    xs = x_scale.float().contiguous()
+    wt = wq if k_major else wq.t().contiguous()
+    xs = None if x_scale is None else x_scale.float().contiguous()
     ws = w_scale.float().contiguous()
+    if bias is not None and bias.dtype not in _OUT_DTYPES:
+        bias = bias.float()
+    bs = None if bias is None else bias.contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     lib = _int8_lib()
     with torch.cuda.device(xq.device):
         stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = lib.prt_int8_matmul(xq.data_ptr(), wq.data_ptr(),
-                                  xs.data_ptr(), ws.data_ptr(),
-                                  out.data_ptr(), m, n, k,
-                                  _OUT_DTYPES[out_dtype], stream)
+        err = lib.prt_int8_matmul(
+            xq.data_ptr(), wt.data_ptr(),
+            None if xs is None else xs.data_ptr(), ws.data_ptr(),
+            None if bs is None else bs.data_ptr(),
+            0 if bs is None else _OUT_DTYPES[bs.dtype], out.data_ptr(),
+            m, n, k, _OUT_DTYPES[out_dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"int8_matmul kernel launch failed: cudaError {err} "
@@ -466,7 +495,8 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale: torch.Tensor,
     Raises the JAX wrapper's ``ValueError``s: an inner-dim mismatch, and
     an M, N or K not divisible by its block clipped to the dim.  The
     blocks are checked and kept for the signature: the CUDA kernel picks
-    its own tiling and masks ragged edges (:func:`int8_mm`)."""
+    its own tiling and masks ragged edges, and reads the K-major copy of
+    wq that it makes in the call (:func:`int8_mm`)."""
     _check_int8(xq, wq, x_scale, w_scale, out_dtype)
     m, k = xq.shape
     n = wq.shape[1]

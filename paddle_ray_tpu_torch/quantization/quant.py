@@ -174,19 +174,34 @@ def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     return _FakeQuant.apply(x, bits)
 
 
+def _storage_version(t: torch.Tensor) -> tuple:
+    """Where ``t``'s data lies and how often it was written in place (an
+    inference tensor keeps no count)."""
+    return (t.device, t.data_ptr(),
+            None if t.is_inference() else t._version)
+
+
 class QuantizedLinear(nn.Module):
     """Int8-weight linear: ``y = (x_q @ w_q) * (s_x * s_w) + b`` (dynamic
     PTQ).
 
     ``weight_q`` is int8 ``[in, out]``, ``weight_scale`` float32 ``[1,
-    out]`` (per channel) or a scalar, ``bias`` the Linear's.  Each call
-    quantizes x per tensor in float32 over all of it (padded rows
-    included, as JAX does), with the scale left on the device, and runs
-    the int8 product through :func:`..ops.fused.int8_mm` with ``x_scale =
-    1`` and ``w_scale = s_x * s_w``: the kernel's ``(acc * 1) * (s_x *
-    s_w)`` is JAX's ``acc * (s_x * s_w)`` bit for bit.  The bias is added
-    in float32 and the result cast to x's dtype.  Leading dims of x are
-    flattened into the kernel's rows; any shape is taken."""
+    out]`` (per channel) or a scalar, ``bias`` the Linear's.  Beside them
+    the layer keeps ``weight_qT``, the int8 ``[out, in]`` (K-major) copy
+    the kernel reads, as a non-persistent buffer: the state dict is the
+    JAX layer's, and the int8 weight takes twice its bytes.  The copy is
+    made when the layer is built, and again by the first call after
+    ``weight_q`` was written in place (its ``_version`` moved: a loaded
+    state, the JAX bridge of ``weights.py``) or moved (``.to``).
+
+    Each call quantizes x per tensor in float32 over all of it (padded
+    rows included, as JAX does), with the scale left on the device, and
+    runs the product through :func:`..ops.fused.int8_mm` with no
+    ``x_scale`` and ``w_scale = s_x * s_w``: the kernel's ``acc * (s_x *
+    s_w)`` is JAX's bit for bit; the kernel also adds the bias in float32
+    and writes x's dtype (float32 or bfloat16; another dtype is cast from
+    float32), so a call is one launch.  Leading dims of x are flattened
+    into the kernel's rows; any shape is taken."""
 
     def __init__(self, weight_q: torch.Tensor, weight_scale: torch.Tensor,
                  bias: Optional[torch.Tensor] = None):
@@ -194,6 +209,21 @@ class QuantizedLinear(nn.Module):
         self.register_buffer("weight_q", weight_q)
         self.register_buffer("weight_scale", weight_scale)
         self.register_buffer("bias", bias)
+        self.register_buffer("weight_qT", None, persistent=False)
+        self.refresh_weight_qT()
+
+    def refresh_weight_qT(self) -> None:
+        """Make ``weight_qT`` again from ``weight_q``, and note which
+        ``weight_q`` at which version it copies."""
+        self.weight_qT = self.weight_q.t().contiguous()
+        self._qT_source = _storage_version(self.weight_q)
+
+    def _weight_qT(self) -> torch.Tensor:
+        """``weight_qT``, made again first if ``weight_q`` lies elsewhere
+        or was written since the copy."""
+        if _storage_version(self.weight_q) != self._qT_source:
+            self.refresh_weight_qT()
+        return self.weight_qT
 
     @classmethod
     def from_linear(cls, linear: Linear,
@@ -210,10 +240,10 @@ class QuantizedLinear(nn.Module):
         xq = xq.reshape(-1, x.shape[-1])
         n = self.weight_q.shape[1]
         w_scale = (xs * self.weight_scale).reshape(-1).expand(n)
-        ones = torch.ones(xq.shape[0], dtype=torch.float32, device=x.device)
-        y = int8_mm(xq, self.weight_q, ones, w_scale.contiguous())
-        if self.bias is not None:
-            y = y + self.bias.float()
+        out_dtype = (x.dtype if x.dtype in (torch.float32, torch.bfloat16)
+                     else torch.float32)
+        y = int8_mm(xq, self._weight_qT(), None, w_scale.contiguous(),
+                    out_dtype, bias=self.bias, k_major=True)
         return y.to(x.dtype).reshape(*lead, n)
 
 

@@ -6,8 +6,12 @@ rounds once to float32, as the kernel's int32 -> float32 cast does.  Both
 then multiply by ``x_scale[m]`` and ``w_scale[n]`` in that order, so every
 case is equal bit for bit (``assert_array_equal``): float32 and bfloat16
 outputs, square and non-square shapes, and the form ``QuantizedLinear``
-calls (``x_scale = 1``, ``w_scale = s_x * s_w``).  The block rule raises
-the same ``ValueError`` on both sides; on the CPU no kernel launches."""
+calls (``x_scale = 1``, ``w_scale = s_x * s_w``).  ``int8_mm`` with the
+K-major ``[N, K]`` weight the kernel reads, no ``x_scale`` and a float32
+or bfloat16 bias added before the cast equals the plain version and the
+Pallas kernel (followed by the bias add and cast, as the JAX
+``QuantizedLinear`` does) bit for bit too.  The block rule raises the same
+``ValueError`` on both sides; on the CPU no kernel launches."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,6 +89,43 @@ def test_quantized_linear_form_is_bit_exact():
     np.testing.assert_array_equal(
         _port(int8_mm, xq[:37], wq, ones[:37], scale, torch.float32),
         want[:37])
+
+
+@pytest.mark.parametrize("bias", [None, "f32", "bf16"])
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+@pytest.mark.parametrize("with_x_scale", [True, False])
+def test_k_major_form_with_bias_is_bit_exact(with_x_scale, out, bias):
+    m, k, n = 96, 160, 80
+    xq, wq, xs, ws = _inputs(m + 7, m, k, n)
+    b = (np.random.RandomState(8).randn(n) * 0.3).astype(np.float32)
+    jdt, tdt = DTYPES[out]
+    ones = np.ones(m, np.float32)
+    acc = jax_int8_matmul(jnp.asarray(xq), jnp.asarray(wq),
+                          jnp.asarray(xs if with_x_scale else ones),
+                          jnp.asarray(ws), out_dtype=jnp.float32)
+    tb = None
+    if bias is not None:
+        jb = jnp.asarray(b).astype(DTYPES[bias][0])
+        acc = acc + jb.astype(jnp.float32)
+        tb = torch.from_numpy(b).to(DTYPES[bias][1])
+    want = np.asarray(acc.astype(jdt).astype(jnp.float32))
+    t = [torch.from_numpy(a) for a in (xq, wq, xs, ws)]
+    wt = t[1].t().contiguous()
+    x_scale = t[2] if with_x_scale else None
+    before = int8_matmul.launches
+    got = int8_mm(t[0], wt, x_scale, t[3], tdt, bias=tb, k_major=True)
+    plain = int8_matmul_plain(t[0], wt, x_scale, t[3], tdt, bias=tb,
+                              k_major=True)
+    n_major = int8_mm(t[0], t[1], x_scale, t[3], tdt, bias=tb)
+    assert got.dtype == tdt and got.shape == (m, n)
+    for a in (got, plain, n_major):
+        np.testing.assert_array_equal(a.float().numpy(), want)
+    assert int8_matmul.launches == before
+    with pytest.raises(ValueError, match="inner dims mismatch"):
+        int8_mm(t[0], t[1], x_scale, t[3], tdt, k_major=True)
+    with pytest.raises(ValueError, match=r"bias must be \[80\]"):
+        int8_mm(t[0], wt, x_scale, t[3], tdt, bias=torch.ones(3),
+                k_major=True)
 
 
 @pytest.mark.parametrize("shapes,msg", [

@@ -10,18 +10,28 @@ s_w)``).  ``quantize_model`` replaces the same layers as JAX in a fused
 encoder stack and in BERT.  Tolerances, with their reasons:
 
 - the quantized encoder stack, against the JAX layers run eagerly as the
-  JAX package's tests run them: ``max|err| / max|ref|`` 1e-3.  Its first
-  layer's qkv sees the same input on both sides, but every later int8
-  input is an output of flash attention, LayerNorm or GELU, which JAX and
-  PyTorch sum in other orders (float32 differences near 1e-7).  An
-  activation that lands near a rounding midpoint can take the
-  neighbouring int8 step on one side, moving outputs by about one
-  activation scale times a weight, some 1e-4 of the largest; these
-  inputs take none (the outputs agree within 3e-7).  Were a tensor's
-  largest activation to step, its per-tensor scale would move and every
-  activation would round on a shifted grid (about 1e-2 of the largest:
-  the jitted JAX forward, whose fusions differ by 1e-6, does that here
-  for the pre-LN stack), which this tolerance does not cover.
+  JAX package's tests run them, is checked layer by layer: every
+  ``QuantizedLinear`` is hooked on both sides.  Its first layer's qkv
+  sees the same input on both sides, but every later int8 input is an
+  output of flash attention, LayerNorm or GELU, which JAX and PyTorch sum
+  in other orders (float32 differences near 1e-7).  An activation that
+  lands within that difference of a rounding midpoint can take the
+  neighbouring int8 step on one side: one code of the pre-LN stack's
+  first ``linear2`` input sits on a midpoint and takes it on x86 builds of
+  both libraries, and the step then spreads through every later layer
+  (more codes flip, per-tensor scales move).  So each
+  layer's input must differ from JAX's by float32 rounding alone (64
+  ulps of its largest value) up to and including the first layer whose
+  codes flip, which holds flash attention, LayerNorm, GELU and the
+  residuals that far; each layer must give the JAX layer's output bit for
+  bit on its own input;
+  its codes and scale, when they agree with the JAX run's, must give the
+  JAX run's output bit for bit; and a code that differs must differ by
+  one step, from a JAX value no further from a midpoint than the layer's
+  measured input difference allows (twice it, over the scale: the scale
+  moves with the largest activation, by at most that difference / 127).
+  The post-LN stack, which flips no code, is also held whole:
+  ``max|err| / max|ref|`` 1e-3.
 - the QAT loss curve: ``rtol`` 1e-4 over 30 Adam(5e-2) steps (the same
   summation-order differences, through fake-quant rounding that a step
   can flip for a value at a midpoint).
@@ -136,6 +146,68 @@ def test_quantized_linear_matches_jax_bit_for_bit(per_channel, dtype, bias):
                                       np.asarray(want.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_linear_is_one_fused_product(dtype, bias, monkeypatch):
+    """The layer's product is one ``int8_mm`` call on the K-major copy, with
+    no x scale, the bias added inside and x's dtype written -- here a
+    bfloat16 layer's bfloat16 bias too -- and gives the JAX layer's output
+    bit for bit, leading dims flattened."""
+    jl, tl = _linear_pair(13, 64, 24, bias)
+    if dtype == "bfloat16":
+        tl.to(torch.bfloat16)
+        jl.load_state_dict({k: np.asarray(jnp.asarray(v).astype(
+            jnp.bfloat16)) for k, v in jl.state_dict().items()})
+    jq = JQ.QuantizedLinear.from_linear(jl)
+    tq = Q.QuantizedLinear.from_linear(tl)
+    assert tq.weight_qT.shape == (24, 64) and tq.weight_qT.is_contiguous()
+    assert torch.equal(tq.weight_qT, tq.weight_q.t())
+    calls = []
+    real = Q.quant.int8_mm
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(Q.quant, "int8_mm", spy)
+    x = (2 * np.random.RandomState(6).randn(3, 7, 64)).astype(np.float32)
+    want = jq(_jnp(x, dtype))
+    got = tq(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert len(calls) == 1
+    (xq, w, x_scale, _, out_dtype), kw = calls[0]
+    assert w is tq.weight_qT and x_scale is None and kw["k_major"]
+    assert kw["bias"] is tq.bias and out_dtype == getattr(torch, dtype)
+    assert xq.shape == (21, 64)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (3, 7, 24)
+    np.testing.assert_array_equal(_np(got),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_k_major_copy_stays_out_of_the_state_and_follows_loads():
+    """``weight_qT`` is a non-persistent buffer: no state-dict key, and the
+    next call makes it again after a state is loaded, after any other
+    in-place write to ``weight_q``, and after ``weight_q`` is replaced --
+    each call then gives a freshly built layer's output."""
+    _, tl = _linear_pair(14, 16, 8, True)
+    tq = Q.QuantizedLinear.from_linear(tl)
+    assert sorted(tq.state_dict()) == ["bias", "weight_q", "weight_scale"]
+    x = torch.from_numpy(np.random.RandomState(7).randn(5, 16)
+                         .astype(np.float32))
+    other = Q.QuantizedLinear.from_linear(_linear_pair(15, 16, 8, True)[1])
+    tq.load_state_dict(other.state_dict())
+    assert torch.equal(tq.weight_q, other.weight_q)
+    assert torch.equal(tq(x), other(x))
+    assert torch.equal(tq.weight_qT, other.weight_q.t())
+    with torch.no_grad():
+        tq.weight_q.neg_()
+    flipped = Q.QuantizedLinear(-other.weight_q, other.weight_scale,
+                                other.bias)
+    assert torch.equal(tq(x), flipped(x))
+    assert torch.equal(tq.weight_qT, tq.weight_q.t())
+    tq.weight_q = other.weight_q.clone()
+    assert torch.equal(tq(x), other(x))
+    assert torch.equal(tq.weight_qT, other.weight_q.t())
+
+
 def _encoder_pair(normalize_before, n_layers=2):
     """Fused encoder layers on each side with one numpy state (the JAX
     layers built from their abstract shapes: no eager random init)."""
@@ -179,6 +251,56 @@ def _stack_inputs():
     return x, mask[:, None, None, :]
 
 
+def _hook_quantized_linears(modules, register, is_quantized, to_np):
+    """Hook every quantized linear of ``modules`` (in call order the
+    records fill): each call appends ``(layer, input, output)``, numpy
+    float32."""
+    calls, handles = [], []
+
+    def hook(layer, args, out):
+        calls.append((layer, to_np(args[0]), to_np(out)))
+    for m in modules:
+        for sub in m:
+            if is_quantized(sub):
+                handles.append(register(sub, hook))
+    return calls, handles
+
+
+# the slack, in int8 steps, of a midpoint test: x / scale rounded to
+# float32 on each side, and the two scales' own roundings
+MIDPOINT_SLACK = 2.0 ** -14
+# the input difference, over the input's largest value, of a layer that
+# only summation order separates from JAX's: float32 rounding (64 ulps)
+ROUNDING_DX = 64 * 2.0 ** -23
+
+
+def _check_layer(i, jl, xj, yj, xt, yt, rounding_only):
+    """One hooked layer: the JAX layer on the port's input gives the port's
+    output bit for bit; every code that differs from the JAX run's is one
+    step from a JAX value within the input difference of a midpoint; with
+    no such code (and the same scale) the outputs are bit-equal.  With
+    ``rounding_only`` the inputs must besides differ by no more than
+    float32 rounding (``ROUNDING_DX`` of the largest).  Returns the number
+    of codes that differ."""
+    mine = np.asarray(jl.forward(jnp.asarray(xt)).astype(jnp.float32))
+    np.testing.assert_array_equal(yt, mine, err_msg=f"linear {i}")
+    qj, sj = (np.asarray(a) for a in JQ.quantize_per_tensor(jnp.asarray(xj)))
+    qt, st = (a.numpy() for a in Q.quantize_per_tensor(torch.from_numpy(xt)))
+    dx = float(np.abs(xt - xj).max())
+    if rounding_only:
+        assert dx <= ROUNDING_DX * float(np.abs(xj).max()), (i, dx)
+    flips = qt != qj
+    if not flips.any() and sj == st:
+        np.testing.assert_array_equal(yt, yj, err_msg=f"linear {i}")
+    if flips.any():
+        assert np.abs(qt.astype(np.int32) - qj)[flips].max() == 1, i
+        u = (xj[flips] / sj).astype(np.float32)
+        from_mid = np.abs(u - np.floor(u) - 0.5)
+        reach = 2 * dx / min(float(sj), float(st)) + MIDPOINT_SLACK
+        assert from_mid.max() <= reach, (i, from_mid.max(), reach)
+    return int(flips.sum())
+
+
 @pytest.mark.parametrize("normalize_before", [False, True])
 def test_quantize_model_on_an_encoder_stack_matches_jax(normalize_before):
     jms, tms, _ = _encoder_pair(normalize_before)
@@ -192,6 +314,15 @@ def test_quantize_model_on_an_encoder_stack_matches_jax(normalize_before):
                  if isinstance(sub, Q.QuantizedLinear)}
     assert got_names == want_names
     assert len(got_names) == 8           # qkv, out_proj, linear1, linear2
+    jcalls, jhooks = _hook_quantized_linears(
+        [[sub for _, sub in m.modules()] for m in jms],
+        lambda sub, hook: sub.register_forward_post_hook(hook),
+        lambda sub: isinstance(sub, JQ.QuantizedLinear),
+        lambda a: np.asarray(a.astype(jnp.float32)))
+    tcalls, thooks = _hook_quantized_linears(
+        [tms.modules()], lambda sub, hook: sub.register_forward_hook(hook),
+        lambda sub: isinstance(sub, Q.QuantizedLinear),
+        lambda t: t.detach().float().numpy())
     h = jnp.asarray(x)
     for m in jms:
         h = m(h, jnp.asarray(mask))
@@ -202,9 +333,21 @@ def test_quantize_model_on_an_encoder_stack_matches_jax(normalize_before):
         for m in tms:
             t = m(t, torch.from_numpy(mask))
     assert int8_matmul.launches == before
+    for hk in jhooks + thooks:
+        hk.remove()
     got = t.numpy()
     assert np.isfinite(got).all()
-    assert np.abs(got - want).max() <= STACK_TOL * np.abs(want).max()
+    assert len(jcalls) == len(tcalls) == 8
+    # up to and including the first layer whose codes flip, the inputs
+    # differ by summation order alone; after it, by that flip's spread
+    rounding_only = True
+    for i, ((jl, xj, yj), (tl, xt, yt)) in enumerate(zip(jcalls, tcalls)):
+        np.testing.assert_array_equal(tl.weight_q.numpy(),
+                                      np.asarray(jl.weight_q))
+        if _check_layer(i, jl, xj, yj, xt, yt, rounding_only):
+            rounding_only = False
+    if not normalize_before:
+        assert np.abs(got - want).max() <= STACK_TOL * np.abs(want).max()
 
 
 def test_quantize_model_on_bert_replaces_what_jax_replaces():
@@ -359,6 +502,10 @@ def test_weight_bridge_loads_a_jax_quantized_state(per_channel):
                 attn_dropout_rate=0.0, device="cpu").eval()
         tm = quantized_from_jax_state_dict(fresh(), state)
     assert isinstance(tm.ffn.linear1, Q.QuantizedLinear)
+    for sub in tm.modules():
+        if isinstance(sub, Q.QuantizedLinear):
+            assert "weight_qT" not in sub.state_dict()
+            assert torch.equal(sub._weight_qT(), sub.weight_q.t())
     back = quantized_to_jax_state_dict(tm)
     assert sorted(back) == sorted(state)
     for k, a in state.items():

@@ -26,8 +26,10 @@ from paddle_ray_tpu.quantization.quant import (
 from paddle_ray_tpu_torch.models.generation import (_head_logits,
                                                      quantize_for_decode)
 from paddle_ray_tpu_torch.models.gpt import GPTConfig
+from paddle_ray_tpu_torch.ops import decode_matmul as dm
 from paddle_ray_tpu_torch.ops.decode_matmul import (
-    int8_stream_matmul, int8_stream_matmul_plain, split_k)
+    int8_stream_matmul, int8_stream_matmul_plain,
+    int8_stream_matmul_split_plain, kernel_plan, stream_plan)
 from paddle_ray_tpu_torch.quantization import (WeightOnlyInt8Embedding,
                                                WeightOnlyInt8Linear,
                                                quantize_per_channel)
@@ -81,13 +83,61 @@ def test_int8_stream_matmul_bf16_matches_jax():
                                rtol=2e-2, atol=2e-2)
 
 
-def test_split_k_fills_the_card_and_covers_k():
-    for b, k, n in ((8, 1024, 3072), (8, 1024, 1024), (8, 4096, 1024),
-                    (8, 1024, 50304), (1, 1024, 97), (128, 4096, 4096)):
-        tile_k, splits = split_k(b, k, n)
-        assert tile_k % 16 == 0 and tile_k <= 1024
-        assert (splits - 1) * tile_k < k <= splits * tile_k
-    assert split_k(8, 1024, 50304) == (1024, 1)     # the LM head: no split
+@pytest.mark.parametrize("k", [1024, 4096])
+@pytest.mark.parametrize("n", [97, 1024, 50304])
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_stream_plan_covers_every_k_row_once(b, k, n):
+    """The split plan of a launch on a 132-SM card: runs of a whole number
+    of the kernel's 64-row stages, none empty, each K row in exactly one;
+    runs of 2-4 stages where the column tiles alone leave SMs idle, and
+    the LM head (393 column tiles) not split."""
+    rows, n_splits = stream_plan(b, k, n, 132)
+    assert rows % dm.STAGE_K == 0 and rows > 0
+    covered = np.zeros(k, np.int64)
+    for s in range(n_splits):
+        run = covered[s * rows:min(k, (s + 1) * rows)]
+        assert run.size > 0
+        run += 1
+    assert (covered == 1).all()
+    tiles = -(-n // dm.TILE_N) * -(-b // dm.ROWS)
+    if tiles >= 132:
+        assert n_splits == 1
+    else:
+        assert dm.MIN_RUN_STAGES <= rows // dm.STAGE_K <= dm.MAX_RUN_STAGES
+    if (b, k, n) == (8, 1024, 50304):
+        assert n_splits == 1
+
+
+def test_kernel_plan_is_stream_plan_on_the_card(monkeypatch):
+    """Every launch reads its plan from ``stream_plan`` with the card's SM
+    count."""
+    from paddle_ray_tpu_torch.ops import _splitk
+    monkeypatch.setitem(_splitk._SM_COUNT, "card", 132)
+    for b, k, n in ((8, 1024, 3072), (8, 4096, 1024), (128, 1024, 1024)):
+        assert kernel_plan(b, k, n, "card") == stream_plan(b, k, n, 132)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 128])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_stream_split_plain_matches_unsplit_and_jax(rows, with_bias):
+    """The kernel's split-and-merge in plain PyTorch, with the plan a
+    132-SM card takes and with two uneven runs: within 1e-6 of the
+    unsplit plain version in float32, and the Pallas kernel in interpret
+    mode within the file's tolerance."""
+    x, w, scale, bias = _matmul_inputs(rows + 5, rows, 320, 96)
+    x *= 0.05
+    tb = torch.from_numpy(bias) if with_bias else None
+    args = (torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(scale),
+            tb)
+    whole = int8_stream_matmul_plain(*args)
+    want = np.asarray(jax_int8_matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale),
+        jnp.asarray(bias) if with_bias else None))
+    for rps in (stream_plan(rows, 320, 96, 132)[0], 3 * dm.STAGE_K):
+        got = int8_stream_matmul_split_plain(*args, rows_per_split=rps)
+        assert got.shape == (rows, 96) and got.dtype == torch.float32
+        torch.testing.assert_close(got, whole, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def test_quantize_per_channel_is_bit_exact():

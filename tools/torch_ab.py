@@ -1,4 +1,4 @@
-"""A/B of the attention kernels of two trees of this repository on one card:
+"""A/B of the kernels of two trees of this repository on one card:
 the tree this script lives in against another (an earlier commit, unpacked
 with ``git archive``), one process per turn in the order other, this, this,
 other.  Each turn builds its tree's kernels and times them with its tree's
@@ -22,10 +22,20 @@ other.  Each turn builds its tree's kernels and times them with its tree's
 * ``decode``: ``fused_decode_attention`` at every case and position of
   ``chip_smoke.DEC_ATTN_CASES`` (bf16, float32 and int8 caches at
   gpt3-350m's batch-8 decode, bf16 and int8 at head dims 96 and 80, and
-  one stream at the end of a 2048-row cache, bf16, int8 and float32).
+  one stream at the end of a 2048-row cache, bf16, int8 and float32);
+* ``int8mm``: the int8 matmul at the fused encoder's four linears and
+  gpt3-350m's fc1 at 8192 rows (float32 out, ``int8_mm``; on the K-major
+  weight where the tree's ``int8_mm`` takes one, made outside the timing,
+  as its ``QuantizedLinear`` keeps it), and the tree's whole
+  ``QuantizedLinear`` call at the four linears (bf16 x, bf16 bias: the
+  per-tensor quantize, the product, and whatever bias add and cast the
+  tree makes apart from it);
+* ``stream``: ``int8_stream_matmul`` at every case of
+  ``chip_smoke.matmul_cases`` (gpt3-350m's decode linears and LM head at
+  batch 8, float32 x, N = 97, 1 and 128 rows).
 
-The inputs of ``dal`` and ``decode`` are made from a seed by this script,
-the same in every turn.  A shape a tree's kernels refuse (a head dim it was
+The inputs of ``dal``, ``decode``, ``int8mm`` and ``stream`` are made from
+a seed by this script, the same in every turn.  A shape a tree's kernels refuse (a head dim it was
 not built for) is reported as null.  Prints one JSON line per turn and the
 card's name and power limit.  Run from the repository root on a machine
 with a CUDA card::
@@ -36,6 +46,8 @@ with a CUDA card::
     python3 tools/torch_ab.py paged archive_check/parent
     python3 tools/torch_ab.py dal archive_check/parent
     python3 tools/torch_ab.py decode archive_check/parent
+    python3 tools/torch_ab.py int8mm archive_check/parent
+    python3 tools/torch_ab.py stream archive_check/parent
 """
 from __future__ import annotations
 
@@ -179,6 +191,65 @@ print(json.dumps(out))
 '''
 
 
+# argv: the tree, this tree's int8 cases (JSON: name, M, K, N, form)
+INT8MM_TURN = r'''
+import importlib, inspect, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+fu = importlib.import_module("paddle_ray_tpu_torch.ops.fused")
+quant = importlib.import_module("paddle_ray_tpu_torch.quantization.quant")
+k_major = "k_major" in inspect.signature(fu.int8_mm).parameters
+out = {"k_major": k_major}
+for name, m, k, n, form in json.loads(sys.argv[2]):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(m + k + n)
+    xq = torch.randint(-128, 128, (m, k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    xs = torch.rand(m, generator=g, device="cuda") * 1e-2 + 1e-3
+    ws = torch.rand(n, generator=g, device="cuda") * 1e-2 + 1e-3
+    if form == "kernel":
+        if k_major:
+            wt = wq.t().contiguous()
+            fn = lambda: fu.int8_mm(xq, wt, xs, ws, torch.float32,
+                                    k_major=True)
+        else:
+            fn = lambda: fu.int8_mm(xq, wq, xs, ws, torch.float32)
+    else:
+        bias = (0.1 * torch.randn(n, generator=g, device="cuda")).bfloat16()
+        lin = quant.QuantizedLinear(wq, ws[None, :], bias)
+        x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        fn = lambda: lin(x)
+    with torch.no_grad():
+        out[name] = chip_smoke.time_ms(fn, iters=50)
+print(json.dumps(out))
+'''
+
+# argv: the tree, this tree's stream cases (JSON: name, rows, K, N, bias,
+# dtype)
+STREAM_TURN = r'''
+import importlib, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+dm = importlib.import_module("paddle_ray_tpu_torch.ops.decode_matmul")
+out = {}
+for name, b, k, n, with_bias, dtype in json.loads(sys.argv[2]):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(b + k + n)
+    w_q = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                        dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device="cuda") * 2e-4 + 1e-5
+    x = torch.randn(b, k, generator=g, device="cuda").to(dt)
+    bias = (0.02 * torch.randn(n, generator=g, device="cuda")).to(dt) \
+        if with_bias else None
+    out[name] = chip_smoke.time_ms(
+        lambda: dm.int8_stream_matmul(x, w_q, scale, bias), iters=50)
+print(json.dumps(out))
+'''
+
+
 def _flash_args() -> list:
     """This tree's bf16 flash cases and modes, and the rows the
     causal-segments mode leaves no visible key."""
@@ -211,14 +282,33 @@ def _decode_args() -> list:
     return [json.dumps(chip_smoke.DEC_ATTN_CASES)]
 
 
+def _int8mm_args() -> list:
+    import chip_smoke
+    m = chip_smoke.ENC_BATCH * chip_smoke.ENC_SEQ
+    cases = [[lin, m, k, n, "kernel"] for lin, k, n in chip_smoke.ENC_LINEARS]
+    cases.append(["fc1_8192", 8192, 1024, 4096, "kernel"])
+    cases += [[f"{lin}_quantized_linear", m, k, n, "layer"]
+              for lin, k, n in chip_smoke.ENC_LINEARS]
+    return [json.dumps(cases)]
+
+
+def _stream_args() -> list:
+    import chip_smoke
+    return [json.dumps([[name, b, k, n, bias, str(dt).split(".")[-1]]
+                        for name, b, k, n, bias, dt
+                        in chip_smoke.matmul_cases()])]
+
+
 KINDS = {"flash": (FLASH_TURN, _flash_args), "paged": (PAGED_TURN, _paged_args),
-         "dal": (DAL_TURN, _dal_args), "decode": (DECODE_TURN, _decode_args)}
+         "dal": (DAL_TURN, _dal_args), "decode": (DECODE_TURN, _decode_args),
+         "int8mm": (INT8MM_TURN, _int8mm_args),
+         "stream": (STREAM_TURN, _stream_args)}
 
 
 def main() -> None:
     if len(sys.argv) != 3 or sys.argv[1] not in KINDS:
         raise SystemExit("usage: python3 tools/torch_ab.py "
-                         "{flash,paged,dal,decode} OTHER_TREE")
+                         "{flash,paged,dal,decode,int8mm,stream} OTHER_TREE")
     turn, make_args = KINDS[sys.argv[1]]
     trees = {"other": os.path.abspath(sys.argv[2]), "this": ROOT}
     sys.path.insert(0, ROOT)
