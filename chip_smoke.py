@@ -18,7 +18,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    with bf16 q (over an int8 or a bf16 pool) holds no ``HMMA``, an
    ``int8_matmul`` kernel (the TMA and the masked path, either output
    type) holds no ``IGMMA`` (integer ``wgmma``) or a bf16
-   ``int8_stream_matmul`` kernel no ``HMMA``; the decode-attention,
+   ``int8_stream_matmul`` kernel no ``HMMA``, or a GroupNorm cluster
+   kernel (forward and backward, float32 and bf16, with and without the
+   modulation) holds no ``LDGSTS`` (16-byte ``cp.async``) or no split
+   cluster barrier (``UCGABAR_ARV`` / ``UCGABAR_WAIT``), or any GroupNorm
+   kernel touches local memory or spills; the decode-attention,
    dropout-add-LN and both int8 matmuls' kernels' registers and spills are
    reported beside them.
 3. kernel  -- the paged-attention kernel against its plain PyTorch
@@ -116,8 +120,14 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 13. gn_kernel -- the fused GroupNorm forward and backward kernels against
    their plain versions on the same inputs (run after ``decode_kernel``):
    every (rows, C, mode) of the SD-UNet training step at batch 32 in
-   bfloat16 (14 shapes; modes act none, act silu, scale+shift+silu), a
-   few float32 cases, an odd row count and group counts other than 32.
+   bfloat16 (14 shapes; modes act none, act silu, scale+shift+silu), then
+   ``GN_EXTRA_CASES``: float32 cases, an odd row count, group counts other
+   than 32, and each route of ``group_norm_plan`` -- the cluster route at
+   one and at 16 blocks a cluster, the rowwise route for C 36 (not a whole
+   number of 16-byte vectors in bf16), for a slice past 16 blocks' shared
+   memory and for a view 2 bytes into its buffer.  Each case's line gives
+   both kernels' plans and routes, and the clusters the card holds at once;
+   each kernel runs twice and must give the same bits in every output.
    Forward within ``atol`` 1e-4 (float32) / 2e-2 plus one bfloat16
    rounding (``rtol`` 2**-8; bfloat16); statistics within 1e-4; gradients
    within ``max|err| / max|ref|`` 1e-4 / 2e-2.  The step's cases timed
@@ -519,6 +529,27 @@ _INT8_NAME = re.compile(r"int8_matmul_kernelILb([01])E(f|13__nv_bfloat16)E")
 _STREAM_NAME = re.compile(r"int8_stream_matmul_kernelI(f|13__nv_bfloat16)Lb([01])EE")
 
 
+# the GroupNorm kernels: gn_{fwd,bwd}_cluster_kernel<T[, MOD]> (the cluster
+# route), gn_{fwd,bwd}_kernel<T> and gn_bwd_reduce_kernel (the rowwise route
+# and the reduction over N)
+_GN_NAME = re.compile(r"(gn_(?:fwd|bwd)(?:_cluster)?_kernel)I(f|13__nv_bfloat16)"
+                      r"(?:Lb([01])E)?|gn_bwd_reduce_kernel")
+# what the cluster kernels' SASS must hold: 16-byte asynchronous copies
+# (cp.async), the split cluster barrier; and what none may: local memory
+GN_SASS_OPCODES = ("LDGSTS", "UCGABAR_ARV", "UCGABAR_WAIT", "LDL", "STL")
+
+
+def _gn_short(mangled):
+    m = _GN_NAME.search(mangled)
+    if m is None:
+        return None
+    if m.group(1) is None:
+        return "gn_bwd_reduce_kernel"
+    base, t, mod = m.groups()
+    t = "float" if t == "f" else "bf16"
+    return f"{base}<{t}{'' if mod is None else ',mod' if mod == '1' else ''}>"
+
+
 def _int8_short(mangled):
     m = _INT8_NAME.search(mangled)
     if m:
@@ -533,23 +564,25 @@ def _int8_short(mangled):
     return None
 
 
-def _sass_counts(library, log, short, out_name) -> dict:
+def _sass_counts(library, log, short, out_name, opcodes=()) -> dict:
     """Each kernel's tensor-core instructions in the built library's SASS
     (``cuobjdump --dump-sass``: ``HGMMA`` is wgmma, ``IGMMA`` integer wgmma,
-    ``HMMA`` mma.sync) and
+    ``HMMA`` mma.sync), the lines holding each of ``opcodes`` and
     its instruction count, beside ptxas's registers and spills from the
     build log (which holds them only when the library was built in this
-    run); the MMA lines go to ``OUT_DIR/<out_name>``.  None without
-    ``cuobjdump``."""
+    run); the MMA lines (and those of ``opcodes``) go to
+    ``OUT_DIR/<out_name>``.  None without ``cuobjdump``."""
     from paddle_ray_tpu_torch.ops import _build
     kernels = {}
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Function properties for" in line and short(line):
             spill = re.search(r"(\d+) bytes spill stores", lines[i + 1])
+            loads = re.search(r"(\d+) bytes spill loads", lines[i + 1])
             regs = re.search(r"Used (\d+) registers", lines[i + 2])
             kernels[short(line)] = {
                 "spill_store_bytes": int(spill.group(1)) if spill else None,
+                "spill_load_bytes": int(loads.group(1)) if loads else None,
                 "registers": int(regs.group(1)) if regs else None}
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
@@ -564,11 +597,17 @@ def _sass_counts(library, log, short, out_name) -> dict:
         if "Function :" in line:
             name = short(line.split("Function :")[1].strip())
             if name:
-                kernels.setdefault(name, {}).update(hgmma=0, igmma=0, hmma=0,
-                                                    instructions=0)
+                kernels.setdefault(name, {}).update(
+                    hgmma=0, igmma=0, hmma=0, instructions=0,
+                    **{op: 0 for op in opcodes})
                 kept.append(line)
         elif name and line.lstrip().startswith("/*") and ";" in line:
             kernels[name]["instructions"] += 1
+            found = [op for op in opcodes if op in line]
+            for op in found:
+                kernels[name][op] += 1
+            if found and "MMA" not in line:
+                kept.append(line)
             if "MMA" in line:
                 kernels[name]["hgmma"] += "HGMMA" in line
                 kernels[name]["igmma"] += "IGMMA" in line
@@ -587,8 +626,9 @@ def _sass_check(logs: dict) -> None:
     four head dims lacks a bf16 dq tensor-core kernel, if a paged kernel
     with bf16 q (over an int8 or a bf16 pool) holds no ``HMMA`` (its
     prefill tiles' ``mma.sync``), if an ``int8_matmul`` kernel (TMA or
-    masked path, float32 or bf16 output) holds no ``IGMMA``, or if an
-    ``int8_stream_matmul`` kernel for bf16 x holds no ``HMMA``."""
+    masked path, float32 or bf16 output) holds no ``IGMMA``, if an
+    ``int8_stream_matmul`` kernel for bf16 x holds no ``HMMA``, or if the
+    GroupNorm kernels fail ``_gn_sass_check``."""
     kernels = _sass_counts("flash_attention", logs["flash_attention"],
                            _flash_short, "sass_flash_mma.txt")
     paged = _sass_counts("paged_attention", logs["paged_attention"],
@@ -599,6 +639,10 @@ def _sass_check(logs: dict) -> None:
     int8 = {library: _sass_counts(library, logs[library], _int8_short,
                                   f"sass_{library}_mma.txt")
             for library in ("int8_matmul", "decode_matmul")}
+    gn = _sass_counts("groupnorm", logs["groupnorm"], _gn_short,
+                      "sass_groupnorm.txt", GN_SASS_OPCODES)
+    if gn is not None:
+        _gn_sass_check(gn)
     if kernels is None or paged is None or None in int8.values():
         return
     tc = [n for n in kernels if "_tc_kernel" in n]
@@ -627,6 +671,26 @@ def _sass_check(logs: dict) -> None:
             f"int8 SASS: int8_matmul kernels without IGMMA {no_igmma} (of "
             f"{sorted(mm)}), bf16 int8_stream_matmul kernels without HMMA "
             f"{no_hmma} (of {sorted(stream)})")
+
+
+def _gn_sass_check(gn: dict) -> None:
+    """The GroupNorm cluster kernels (forward and backward, float32 and
+    bf16, the backward with and without modulation: six) each hold
+    ``LDGSTS`` (16-byte ``cp.async``) and the split cluster barrier
+    (``UCGABAR_ARV``, ``UCGABAR_WAIT``); no GroupNorm kernel touches local
+    memory (``LDL`` / ``STL``) or spills in ptxas's report."""
+    cluster = {n: k for n, k in gn.items() if "_cluster_" in n}
+    missing = [n for n, k in cluster.items()
+               if not (k.get("LDGSTS") and k.get("UCGABAR_ARV")
+                       and k.get("UCGABAR_WAIT"))]
+    local = [n for n, k in gn.items()
+             if k.get("LDL") or k.get("STL") or k.get("spill_store_bytes")
+             or k.get("spill_load_bytes")]
+    if len(cluster) != 6 or missing or local:
+        raise AssertionError(
+            f"groupnorm SASS: cluster kernels {sorted(cluster)}; without "
+            f"LDGSTS or the cluster barrier {missing}; with local memory or "
+            f"spills {local}")
 
 
 # ---------------------------------------------------------------------------
@@ -1479,25 +1543,65 @@ def _gn_bound(kind, n, rows, c, groups, dtype, mode) -> dict:
             "bytes": n_bytes, "ops": ops}
 
 
-def _gn_case(name, n, rows, c, groups, mode, dtype, timed) -> dict:
+def _gn_route(n, rows, c, groups, dtype, mod, fwd_tensors,
+              bwd_tensors) -> dict:
+    """Each kernel's plan (``group_norm_plan``), the route the launch takes
+    with these tensors, and for the cluster route the clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``; a plan the card
+    cannot hold fails here)."""
+    from paddle_ray_tpu_torch.ops import groupnorm as gn
+    out = {}
+    for kind, ts in (("fwd", fwd_tensors), ("bwd", bwd_tensors)):
+        plan = gn.group_norm_plan(n, rows, c, groups, dtype, kind)
+        route = "cluster" if gn._plan_args(plan, *ts)[0] else "rowwise"
+        r = {**{k: v for k, v in plan._asdict().items()
+                if v not in ("", 0)}, "route": route}
+        if route == "cluster":
+            r["active_clusters"] = gn.active_clusters(
+                plan, rows, c, groups, dtype, kind, mod=mod)
+            if r["active_clusters"] <= 0:
+                raise AssertionError(f"group norm plan {plan} ({kind}, "
+                                     f"{rows} x {c}) holds no cluster")
+        out[kind] = r
+    return out
+
+
+def _gn_case(name, n, rows, c, groups, mode, dtype, timed,
+             misalign=False) -> dict:
     """One case: the kernels against the plain versions on the same
-    inputs (the backward from the plain forward's statistics), and with
-    ``timed`` each timed beside its bound, the plain version and
-    ``torch.nn.functional.group_norm`` on the channels-last NCHW view."""
+    inputs (the backward from the plain forward's statistics), each
+    kernel twice (the same bits), with the plan and route each took; with
+    ``misalign`` x and dy are views 2 bytes into a buffer (the rowwise
+    route by alignment).  With ``timed`` each timed beside its bound, the
+    plain version and ``torch.nn.functional.group_norm`` on the
+    channels-last NCHW view."""
     import torch.nn.functional as F
     from paddle_ray_tpu_torch.ops.groupnorm import (
         fused_group_norm_bwd, fused_group_norm_bwd_plain, fused_group_norm_fwd,
         fused_group_norm_fwd_plain)
     act, mod = GN_MODES[mode]
     x, w, b, s, t, dy = _gn_inputs(n, rows, c, mod, dtype)
+    if misalign:
+        def shifted(a):
+            buf = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+            view = buf[1:].view(a.shape)
+            view.copy_(a)
+            return view
+        x, dy = shifted(x), shifted(dy)
     kw = dict(groups=groups, act=act)
     y, mu, rs = fused_group_norm_fwd(x, w, b, s, t, epsilon=GN_EPS, **kw)
+    again = fused_group_norm_fwd(x, w, b, s, t, epsilon=GN_EPS, **kw)
     torch.cuda.synchronize()
     y_ref, mu_ref, rs_ref = fused_group_norm_fwd_plain(
         x, w, b, s, t, epsilon=GN_EPS, **kw)
     bwd = (x, w, b, s, t, mu_ref, rs_ref, dy)
     got = fused_group_norm_bwd(*bwd, **kw)
+    got2 = fused_group_norm_bwd(*bwd, **kw)
     torch.cuda.synchronize()
+    route = _gn_route(n, rows, c, groups, dtype, mod, (x, y),
+                      (x, dy, got[0]))
+    same_bits = all(torch.equal(a, e) for a, e in zip(
+        (y, mu, rs, *got), (*again, *got2)) if e is not None)
     want = fused_group_norm_bwd_plain(*bwd, **kw)
     tol = TOL[dtype]
     # bfloat16: atol plus one rounding of the output type (a value that the
@@ -1513,16 +1617,19 @@ def _gn_case(name, n, rows, c, groups, mode, dtype, timed) -> dict:
         if e is not None}
     finite = all(bool(torch.isfinite(a).all()) for a in (y, mu, rs, *got)
                  if a is not None)
-    if not (finite and torch.allclose(y.float(), y_ref.float(), rtol=rtol,
-                                      atol=tol)
+    if not (finite and same_bits
+            and torch.allclose(y.float(), y_ref.float(), rtol=rtol, atol=tol)
             and stat_err <= 1e-4 and max(bwd_rel.values()) <= tol):
         raise AssertionError(
-            f"group norm {name}: kernel vs plain: forward max_abs_err "
-            f"{fwd_err}, statistics {stat_err}, gradients rel_err {bwd_rel} "
-            f"(tolerance {tol})")
+            f"group norm {name} ({route}): kernel vs plain: forward "
+            f"max_abs_err {fwd_err}, statistics {stat_err}, gradients "
+            f"rel_err {bwd_rel} (tolerance {tol}); the same bits twice: "
+            f"{same_bits}")
     r = {"fwd": {"max_abs_err": fwd_err, "stat_err": stat_err,
+                 **route["fwd"],
                  **_gn_bound("fwd", n, rows, c, groups, dtype, mode)},
          "bwd": {"max_abs_err": bwd_abs, "rel_err": bwd_rel,
+                 **route["bwd"],
                  **_gn_bound("bwd", n, rows, c, groups, dtype, mode)}}
     if timed:
         xv = x.view(n, rows, 1, c).permute(0, 3, 1, 2)
@@ -1545,22 +1652,46 @@ def _gn_case(name, n, rows, c, groups, mode, dtype, timed) -> dict:
             library_ms=lib_fwd_bwd - lib_fwd)
     emit("gn_kernel", case=name, shape=[n, rows, c], groups=groups,
          mode=mode, dtype=str(dtype), tol=tol, rtol=rtol, timed=timed,
+         same_bits_twice=same_bits,
          library="torch.nn.functional.group_norm on the channels-last NCHW "
                  "view: GroupNorm alone, without the modulation or SiLU "
                  "(bwd: its autograd backward)", **r)
     return r
 
 
+# (name, N, rows, C, groups, mode, dtype, misalign) beyond the UNet step's
+# bf16 cases: float32, odd rows, other group counts, and each route of the
+# plan -- the cluster route at 1 block a cluster (64 rows) and at 16 (g2,
+# cpg10), the rowwise route for C * itemsize not a multiple of 16 bytes, for
+# a slice past 16 blocks' shared memory, and for a view that does not start
+# on 16 bytes
+GN_EXTRA_CASES = (
+    ("f32_4096x320_mod", UNET_BATCH, 4096, 320, 32, "mod", "float32", False),
+    ("f32_256x1280_none", UNET_BATCH, 256, 1280, 32, "none", "float32",
+     False),
+    ("f32_64x2560_silu", UNET_BATCH, 64, 2560, 32, "silu", "float32", False),
+    ("odd_rows_63x640_g16_mod_bf16", UNET_BATCH, 63, 640, 16, "mod",
+     "bfloat16", False),
+    ("g2_cpg320_1024x640_silu_f32", 8, 1024, 640, 2, "silu", "float32",
+     False),
+    ("g4_cpg10_4095x40_mod_bf16", 4, 4095, 40, 4, "mod", "bfloat16", False),
+    ("rowwise_c36_g4_mod_bf16", 2, 4096, 36, 4, "mod", "bfloat16", False),
+    ("rowwise_past_cluster_65536x320_mod_bf16", 2, 65536, 320, 32, "mod",
+     "bfloat16", False),
+    ("rowwise_misaligned_1024x640_silu_bf16", 4, 1024, 640, 32, "silu",
+     "bfloat16", True),
+)
+
+
 def phase_gn_kernel() -> dict:
     """The UNet step's (rows, C, mode) calls at batch 32 in bfloat16,
-    timed; the other modes at the step's shapes, checked; float32 cases;
-    an odd row count and group counts other than 32 (2 groups: 320
-    channels a group, more than a block's 256 threads)."""
+    timed; the other modes at the step's shapes, checked; then
+    ``GN_EXTRA_CASES`` (the float32 ones timed)."""
     calls = unet_gn_calls()
     step_cases = sorted(set(calls), key=lambda k: (-k[0], k[1], k[2]))
     shapes = sorted({(rows, c) for rows, c, _ in calls}, reverse=True)
     groups = UNET_CFG["groups"]
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     results = {}
     for rows, c, mode in step_cases:
         results[(rows, c, mode)] = _gn_case(
@@ -1571,15 +1702,14 @@ def phase_gn_kernel() -> dict:
             if (rows, c, mode) not in results:
                 _gn_case(f"unet_{rows}x{c}_{mode}_bf16", UNET_BATCH, rows, c,
                          groups, mode, bf16, timed=False)
-    for name, n, rows, c, g, mode, dtype in (
-            ("f32_4096x320_mod", UNET_BATCH, 4096, 320, 32, "mod", f32),
-            ("f32_256x1280_none", UNET_BATCH, 256, 1280, 32, "none", f32),
-            ("f32_64x2560_silu", UNET_BATCH, 64, 2560, 32, "silu", f32),
-            ("odd_rows_63x640_g16_mod_bf16", UNET_BATCH, 63, 640, 16, "mod",
-             bf16),
-            ("g2_cpg320_1024x640_silu_f32", 8, 1024, 640, 2, "silu", f32),
-            ("g4_cpg10_4095x40_mod_bf16", 4, 4095, 40, 4, "mod", bf16)):
-        _gn_case(name, n, rows, c, g, mode, dtype, timed=dtype == f32)
+    routes = set()
+    for name, n, rows, c, g, mode, dtype, misalign in GN_EXTRA_CASES:
+        dt = getattr(torch, dtype)
+        r = _gn_case(name, n, rows, c, g, mode, dt,
+                     timed=dt == torch.float32, misalign=misalign)
+        routes |= {r["fwd"]["route"], r["bwd"]["route"]}
+    if routes != {"cluster", "rowwise"}:
+        raise AssertionError(f"group norm cases took routes {routes}")
     # the step's 56 calls of each kernel, summed
     step = {kind: {k: sum(results[call][kind][k] for call in calls)
                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -2566,7 +2696,7 @@ def phase_unet_train() -> dict:
         return sum(t_ for k, t_, _ in rows if any(q in k for q in keys)) / 1e3
     # device ms by kind, by kernel name (in this order): cuDNN's convolution
     # kernels are named fprop / dgrad / wgrad, cuBLAS's GEMMs gemm or nvjet
-    kinds = {"group_norm": ("gn_fwd_kernel", "gn_bwd"),
+    kinds = {"group_norm": ("gn_fwd", "gn_bwd"),
              "convolution": ("fprop", "dgrad", "wgrad", "convolve", "cudnn"),
              "matmul": ("gemm", "nvjet"), "softmax": ("softmax",)}
     by_kind, seen = {}, set()
@@ -2581,8 +2711,7 @@ def phase_unet_train() -> dict:
          device_ms=device_ms, device_idle_share=1.0 - device_ms / step_ms,
          kernels_launched=sum(c for _, _, c in rows),
          device_ms_by_kind=by_kind,
-         group_norm_ms={"fwd": share("gn_fwd_kernel"),
-                        "bwd": share("gn_bwd_kernel", "gn_bwd_reduce")},
+         group_norm_ms={"fwd": share("gn_fwd"), "bwd": share("gn_bwd")},
          top_kernels=[{"name": k[:90], "ms": t_ / 1e3, "calls": c}
                       for k, t_, c in top],
          annotated_spans=[{"name": k, "ms": t_ / 1e3}
@@ -3462,7 +3591,10 @@ def main() -> None:
     gn_case = gn["cases"][(UNET_IMG * UNET_IMG, 320, "mod")]
     gn_shape = (f"bf16 [{UNET_BATCH}, {UNET_IMG}, {UNET_IMG}, 320], 32 "
                 f"groups, scale+shift+silu (the step's {gn['calls']} calls "
-                f"sum to {{:.4f}} ms against a {{:.4f}} ms bound); "
+                f"sum to {{:.4f}} ms against a {{:.4f}} ms bound); a "
+                f"cluster of blocks holds a (sample, group-set) slice in "
+                f"shared memory, read by 16-byte cp.async once, statistics "
+                f"exchanged over distributed shared memory in rank order; "
                 f"library_ms is torch.nn.functional.group_norm alone on the "
                 f"channels-last NCHW view")
     entries += [

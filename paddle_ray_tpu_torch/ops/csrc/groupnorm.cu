@@ -27,31 +27,47 @@
 // written once (forward), x and dy read once and dx written once (backward),
 // over 3.35 TB/s.
 //
-// Design (simple first):
-//   * one block per (sample, group).  The TPU kernel ran one grid step per
-//     sample and summed channels into groups with a [C, G] one-hot matmul,
-//     because lane-dim reshapes do not lower there; here a block owns the
-//     group's rows x cpg slice and indexes it directly (cpg = C / G, 10-80 in
-//     the SD-UNet, not a power of two);
-//   * a block's threads are `lanes` row lanes of `width` = min(cpg, 256)
-//     channels (width * lanes <= 256, rounded up to whole warps; the rest
-//     idle).  Each thread keeps one channel of a chunk and walks the rows of
-//     its lane, so its per-channel constants sit in registers and its
-//     per-channel sums need no atomics.  cpg > 256 walks the channels in
-//     chunks of 256;
-//   * forward: three walks over the slice (sum; centred sum of squares;
-//     normalise and store), the second and third mostly from L2;
-//   * backward: two walks (per-channel sums of dz and dz * x-hat, and ds, dt;
-//     then dx), the per-channel sums reduced over the row lanes in shared
-//     memory in a fixed order.  The TPU kernel carried dgamma / dbeta across
-//     its sequential grid in scratch; blocks here run in no order, so each
-//     writes its per-sample partials and a second small kernel sums them over
-//     N in a fixed order: deterministic, no atomics;
-//   * every reduction has a fixed order, so results repeat bit for bit.
-// A group's slice is cpg contiguous elements (20-160 bytes) a row at a stride
-// of C elements, so loads coalesce poorly.  Left for later: staging the slice
-// in shared memory (one read of x instead of three), cp.async / TMA, and
-// splitting the rows of a group over several blocks.
+// Two routes, chosen by shape alone in `ops/groupnorm.py:group_norm_plan`:
+//
+// CLUSTER (the main path; C * itemsize a multiple of 16 bytes, 16-byte
+// aligned tensors, a slice that fits a cluster's shared memory):
+//   * a thread-block cluster of K blocks (K <= 16) owns a (sample, group-set)
+//     slice: a run of whole groups whose width in bytes is a multiple of 16
+//     (4 groups of cpg 10 in bf16: 80 bytes); the plan takes 32 (a sector)
+//     for the forward where the slice still fits, since blocks that share a
+//     sector of each row read and write it twice.  Its blocks split the slice's
+//     rows; each copies its rows x the group-set's channels ONCE from device
+//     memory into shared memory by 16-byte `cp.async` (LDGSTS), in 4 commit
+//     groups, and starts summing the first while the rest arrive;
+//   * a thread owns one 16-byte vector of channels (8 bf16 or 4 f32) over a
+//     stride of rows (the "row lanes"), and reads only the vectors it copied
+//     itself, so no barrier stands between a copy and its use.  Its
+//     per-channel sums sit in registers; the block sums them per group over
+//     its (row lane, channel) pairs (the backward per channel first), then the
+//     cluster exchanges the K partials over distributed shared memory
+//     (`mapa` / `ld.shared::cluster`), every block adding them in rank order:
+//     all blocks hold the same bits;
+//   * forward: the mean, then the centred sum of squares from shared memory,
+//     the same exchange, rstd; rank 0 writes mu and rstd; y = act(x * a_mul +
+//     a_add) from shared memory, stored 16 bytes a thread.  One read of x and
+//     one write of y a call;
+//   * backward: x and dy both resident; per-channel sums of dw and dw * x-hat
+//     (dw the gradient at the pre-activation), from which every other sum
+//     follows, exchanged the same way (rank 0 writes dgamma_part, dbeta_part,
+//     ds, dt for its (n, channels)); the group means m1, m2; dx from shared
+//     memory.  One read of x and dy, one write of dx;
+//   * a block's last remote read is followed by a cluster arrive, and the
+//     block waits on the cluster barrier only at its end, so its epilogue
+//     overlaps the others' exchange.
+// ROWWISE (C * itemsize not a multiple of 16, an unaligned tensor, or a slice
+// past a cluster's shared memory): the first design, one block per (sample,
+// group), one channel a thread; the forward walks x three times, the
+// backward x and dy twice, the later walks mostly from L2.
+//
+// On either route the backward's dgamma / dbeta are per-sample partials that a
+// second small kernel sums over N in a fixed order (two launches a backward
+// call, one a forward call).  Every reduction has a fixed order, so results
+// repeat bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +89,9 @@ __device__ __forceinline__ float load_param(const void* p, size_t i, int dt) {
                     : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
 }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+// 1 / (1 + e^-v) by the special-function unit (ex2 and rcp, a few ulp), 0
+// where e^-v overflows
+__device__ __forceinline__ float sigmoid(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
 
 // threads of a block for `cpg` channels a group: whole warps covering
 // width * lanes workers
@@ -338,12 +356,547 @@ gn_bwd_reduce_kernel(const float* __restrict__ dgamma_part, const float* __restr
   dbeta[c] = b;
 }
 
+// ---------------------------------------------------------------------------
+// the cluster route (see the file's header)
+// ---------------------------------------------------------------------------
+constexpr int kClusterThreads = 256;  // the most threads of a cluster-route block
+constexpr int kClusterMax = 16;       // a non-portable cluster size on the H100
+constexpr int kChunks = 4;            // cp.async commit groups a block
+constexpr int kSmemBlockMax = 232448;
+
+
+// a (sample, group-set) slice and its split over a cluster, from the plan
+struct Plan {
+  int rows, C, G, cpg;
+  int gpset, W, Wv, n_gsets;  // groups, channels and 16-byte vectors of a group-set
+  int K, rows_b, lanes, T;    // cluster size, rows a block, row lanes, worker threads
+  float cnt;                  // elements of a group
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the cluster barrier, split: arrive (release) and wait (acquire); every
+// thread of every block of the cluster takes both
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// a barrier of the cluster (of the block alone for a cluster of one)
+__device__ __forceinline__ void cluster_sync(int K) {
+  if (K > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+}
+// a float of block `rank`'s shared memory at the offset of `p` in this block's
+__device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+// the sum of `p`'s float over the K blocks of the cluster in rank order, the
+// same bits in every block; the K loads are issued before the first add
+__device__ __forceinline__ float cluster_sum(const float* p, int K) {
+  if (K == 1) return *p;
+  float v[kClusterMax];
+#pragma unroll
+  for (int r = 0; r < kClusterMax; ++r) v[r] = r < K ? ld_cluster(p, r) : 0.f;
+  float s = v[0];
+#pragma unroll
+  for (int r = 1; r < kClusterMax; ++r)
+    if (r < K) s += v[r];
+  return s;
+}
+
+// the sum over a warp's lanes, the same bits in every lane (each butterfly
+// step adds the same two values, in either order)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 16 bytes of T as floats, and back
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(h[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return u;
+}
+
+// Shared memory, in order (each region a multiple of 16 bytes): the resident
+// tiles [arrays][rows_b][Wv] 16-byte vectors; red [lanes][W] f32 (the row
+// lanes' per-channel sums); prm [4][W] f32 (gamma, beta, s, t of the
+// group-set's channels); red2 [kClusterThreads] f32; then forward part
+// [2][gp4] and stat [2][gp4], backward part [2][W], tot [2][W] and stat
+// [2][gp4], gp4 the group-set's groups rounded up to 4.
+__host__ __device__ inline size_t cluster_tile_bytes(const Plan& p, int arrays, int es) {
+  return static_cast<size_t>(arrays) * p.rows_b * p.W * es;
+}
+__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+__host__ __device__ inline size_t cluster_smem_bytes(const Plan& p, bool bwd, int es) {
+  const size_t floats = static_cast<size_t>(p.lanes) * p.W + 4 * p.W + kClusterThreads +
+                        (bwd ? 4 * p.W + 2 * round4(p.gpset) : 4 * round4(p.gpset));
+  return cluster_tile_bytes(p, bwd ? 2 : 1, es) + sizeof(float) * floats;
+}
+
+struct Smem {
+  uint4* tile;  // x, then (backward) dy
+  float *red, *prm, *red2, *part, *tot, *stat;
+};
+
+template <typename T>
+__device__ __forceinline__ Smem smem_of(unsigned char* base, const Plan& p, bool bwd) {
+  Smem m;
+  m.tile = reinterpret_cast<uint4*>(base);
+  m.red = reinterpret_cast<float*>(base + cluster_tile_bytes(p, bwd ? 2 : 1, sizeof(T)));
+  m.prm = m.red + static_cast<size_t>(p.lanes) * p.W;
+  m.red2 = m.prm + 4 * p.W;
+  m.part = m.red2 + kClusterThreads;
+  m.tot = m.part + (bwd ? 2 * p.W : 0);
+  m.stat = bwd ? m.tot + 2 * p.W : m.part + 2 * round4(p.gpset);
+  return m;
+}
+
+// the thread's place in its block: vector column v, row lane l, the rows of
+// the slice it owns (l + k * lanes for k < nk), and the chunk length in k
+struct Owner {
+  int v, l, nk, kc;
+  bool worker;
+};
+
+__device__ __forceinline__ Owner owner_of(const Plan& p, int nrows) {
+  Owner o;
+  o.worker = static_cast<int>(threadIdx.x) < p.T;
+  o.v = threadIdx.x % p.Wv;
+  o.l = threadIdx.x / p.Wv;
+  o.nk = o.worker && o.l < nrows ? (nrows - 1 - o.l) / p.lanes + 1 : 0;
+  o.kc = ((p.rows_b + p.lanes - 1) / p.lanes + kChunks - 1) / kChunks;
+  return o;
+}
+
+// copy the thread's vectors of `src` (at row 0 of the block, the thread's
+// first channel) into `tile`, one commit group a chunk of k
+template <typename T>
+__device__ __forceinline__ void issue_copies(uint4* tile, const T* src, int chunk, const Owner& o,
+                                             const Plan& p) {
+  for (int k = chunk * o.kc; k < min((chunk + 1) * o.kc, o.nk); ++k) {
+    const int r = o.l + k * p.lanes;
+    cp_async16(tile + static_cast<size_t>(r) * p.Wv + o.v, src + static_cast<size_t>(r) * p.C);
+  }
+}
+
+// wait for the thread's own copies of chunk `chunk` (a constant after unrolling)
+__device__ __forceinline__ void wait_chunk(int chunk) {
+  if (chunk == 0) cp_wait<kChunks - 1>();
+  else if (chunk == 1) cp_wait<kChunks - 2>();
+  else if (chunk == 2) cp_wait<kChunks - 3>();
+  else cp_wait<0>();
+}
+
+// prm = gamma, beta (and s, t of sample n) of the group-set's W channels, as
+// floats; read after the next barrier
+__device__ __forceinline__ void load_params(float* prm, const void* gamma, const void* beta,
+                                            const void* s, const void* t, int n, int gs,
+                                            const Plan& p, int p_dt, int s_dt) {
+  for (int c = threadIdx.x; c < p.W; c += blockDim.x) {
+    const int ch = gs * p.W + c;
+    prm[c] = load_param(gamma, ch, p_dt);
+    prm[p.W + c] = load_param(beta, ch, p_dt);
+    if (s != nullptr) {
+      const size_t nc = static_cast<size_t>(n) * p.C + ch;
+      prm[2 * p.W + c] = load_param(s, nc, s_dt);
+      prm[3 * p.W + c] = load_param(t, nc, s_dt);
+    }
+  }
+}
+
+// out[c] = the block's sum of channel c over its row lanes, in a fixed order:
+// each worker's E sums go to red[lane][channel]; P = blockDim / W strips of
+// threads sum every P-th lane of a channel into red2, then one thread a
+// channel adds the P strips.  Ends behind a barrier.
+template <int E>
+__device__ __forceinline__ void channel_sums(const float (&acc)[E], const Smem& m, float* out,
+                                             const Plan& p, const Owner& o) {
+  if (o.worker) {
+    float4* dst = reinterpret_cast<float4*>(m.red + static_cast<size_t>(o.l) * p.W + o.v * E);
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q)
+      dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  }
+  __syncthreads();
+  const int P = max(1, static_cast<int>(blockDim.x) / p.W);
+  for (int i = threadIdx.x; i < P * p.W; i += blockDim.x) {
+    const int c = i % p.W;
+    float s0 = 0.f, s1 = 0.f;
+    int l = i / p.W;
+    for (; l + P < p.lanes; l += 2 * P) {
+      s0 += m.red[static_cast<size_t>(l) * p.W + c];
+      s1 += m.red[static_cast<size_t>(l + P) * p.W + c];
+    }
+    if (l < p.lanes) s0 += m.red[static_cast<size_t>(l) * p.W + c];
+    (P == 1 ? out[c] : m.red2[i]) = s0 + s1;
+  }
+  __syncthreads();
+  if (P > 1) {
+    for (int c = threadIdx.x; c < p.W; c += blockDim.x) {
+      float s = 0.f;
+      for (int q = 0; q < P; ++q) s += m.red2[q * p.W + c];
+      out[c] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// part[g] = the block's sum of group g's channels over its row lanes, straight
+// from the workers' per-channel sums: wpg = warps / gpset warps a group each
+// sum a fixed stride of its (lane, channel) pairs, a warp's lanes by
+// butterfly, then the group's warps in order.  Ends behind a barrier.
+template <int E>
+__device__ __forceinline__ void group_sums(const float (&acc)[E], const Smem& m, float* part,
+                                           const Plan& p, const Owner& o) {
+  if (o.worker) {
+    float4* dst = reinterpret_cast<float4*>(m.red + static_cast<size_t>(o.l) * p.W + o.v * E);
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q)
+      dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  const int wpg = max(1, nw / p.gpset);
+  const int n_e = p.lanes * p.cpg;
+  for (int gw = warp; gw < p.gpset * wpg; gw += nw) {
+    const int g = gw / wpg;
+    float s = 0.f;
+    for (int e = (gw % wpg) * 32 + lane; e < n_e; e += wpg * 32) {
+      const int l = e / p.cpg;
+      s += m.red[static_cast<size_t>(l) * p.W + g * p.cpg + (e - l * p.cpg)];
+    }
+    s = warp_sum(s);
+    if (lane == 0) m.red2[gw] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < p.gpset) {
+    float s = 0.f;
+    for (int q = 0; q < wpg; ++q) s += m.red2[threadIdx.x * wpg + q];
+    part[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// forward: grid K x group-sets x N in clusters of K, one cluster a (sample,
+// group-set); three blocks an SM by registers (the shared memory may allow
+// fewer)
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads, 3)
+gn_fwd_cluster_kernel(const T* __restrict__ x, const void* __restrict__ gamma,
+                      const void* __restrict__ beta, const void* __restrict__ s,
+                      const void* __restrict__ t, T* __restrict__ y, float* __restrict__ mu_out,
+                      float* __restrict__ rstd_out, Plan p, float eps, int silu, int p_dt,
+                      int s_dt) {
+  constexpr int E = 16 / sizeof(T);
+  static_assert(kChunks == 4, "wait_chunk unrolls four chunks");
+  extern __shared__ __align__(16) unsigned char gn_smem[];
+  const Smem m = smem_of<T>(gn_smem, p, false);
+  const int gp4 = round4(p.gpset);
+  const unsigned rank = cluster_rank();
+  const int cl = blockIdx.x / p.K;
+  const int gs = cl % p.n_gsets, n = cl / p.n_gsets;
+  const int row0 = static_cast<int>(rank) * p.rows_b;
+  const int nrows = max(0, min(p.rows_b, p.rows - row0));
+  const Owner o = owner_of(p, nrows);
+  const int c0 = gs * p.W + o.v * E;  // the thread's first channel
+  const size_t base = (static_cast<size_t>(n) * p.rows + row0) * p.C + c0;
+
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    issue_copies(m.tile, x + base, j, o, p);
+    cp_commit();
+  }
+  load_params(m.prm, gamma, beta, s, t, n, gs, p, p_dt, s_dt);
+  // the mean: sum each chunk as it lands
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    wait_chunk(j);
+    for (int k = j * o.kc; k < min((j + 1) * o.kc, o.nk); ++k) {
+      float f[E];
+      unpack(m.tile[static_cast<size_t>(o.l + k * p.lanes) * p.Wv + o.v], f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] += f[e];
+    }
+  }
+  float* stat = m.stat;  // [2][gp4]: mean, rstd
+  group_sums(acc, m, m.part, p, o);
+  cluster_sync(p.K);
+  if (threadIdx.x < p.gpset) stat[threadIdx.x] = cluster_sum(m.part + threadIdx.x, p.K) / p.cnt;
+  __syncthreads();
+
+  // the centred variance, from shared memory
+  float mean[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    mean[e] = stat[(o.v * E + e) / p.cpg];
+    acc[e] = 0.f;
+  }
+  for (int k = 0; k < o.nk; ++k) {
+    float f[E];
+    unpack(m.tile[static_cast<size_t>(o.l + k * p.lanes) * p.Wv + o.v], f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float d = f[e] - mean[e];
+      acc[e] += d * d;
+    }
+  }
+  group_sums(acc, m, m.part + gp4, p, o);
+  cluster_sync(p.K);
+  if (threadIdx.x < p.gpset) {
+    const float q = cluster_sum(m.part + gp4 + threadIdx.x, p.K);
+    const float rs = rsqrtf(q / p.cnt + eps);
+    stat[gp4 + threadIdx.x] = rs;
+    if (rank == 0) {
+      const size_t ng = static_cast<size_t>(n) * p.G + gs * p.gpset + threadIdx.x;
+      mu_out[ng] = stat[threadIdx.x];
+      rstd_out[ng] = rs;
+    }
+  }
+  if (p.K > 1) cluster_arrive();  // no read of another block's shared memory after here
+  __syncthreads();
+
+  // y = act(x * a_mul + a_add), the affine and modulation folded per channel
+  if (o.worker) {
+    float a_mul[E], a_add[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = o.v * E + e, g = c / p.cpg;
+      a_mul[e] = stat[gp4 + g] * m.prm[c];
+      a_add[e] = m.prm[p.W + c] - stat[g] * a_mul[e];
+      if (s != nullptr) {
+        const float mod_s = 1.f + m.prm[2 * p.W + c];
+        a_add[e] = a_add[e] * mod_s + m.prm[3 * p.W + c];
+        a_mul[e] = a_mul[e] * mod_s;
+      }
+    }
+    T* dst = y + base;
+    for (int k = 0; k < o.nk; ++k) {
+      const int r = o.l + k * p.lanes;
+      float f[E];
+      unpack(m.tile[static_cast<size_t>(r) * p.Wv + o.v], f);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float w = f[e] * a_mul[e] + a_add[e];
+        if (silu) w = w * sigmoid(w);
+        f[e] = w;
+      }
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * p.C) = pack(f);
+    }
+  }
+  if (p.K > 1) cluster_wait();  // no block leaves while another may read its shared memory
+}
+
+// backward: the same grid; MOD (scale and shift given) a template parameter.
+// With w = x-hat * gw + bw the pre-activation (gw = gamma (1 + s), bw = beta
+// (1 + s) + t) and dw its gradient, a thread sums per channel only S0 = sum
+// dw and S1 = sum dw x-hat: dz = dw (1 + s) and z = x-hat gamma + beta give
+// every other sum of the JAX backward from these two (dbeta_part = (1 + s)
+// S0, dgamma_part = (1 + s) S1, ds = gamma S1 + beta S0, dt = S0), and dz
+// gamma = dw gw.
+template <typename T, bool MOD>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+gn_bwd_cluster_kernel(const T* __restrict__ x, const void* __restrict__ gamma,
+                      const void* __restrict__ beta, const void* __restrict__ s,
+                      const void* __restrict__ t, const float* __restrict__ mu,
+                      const float* __restrict__ rstd, const T* __restrict__ dy,
+                      T* __restrict__ dx, float* __restrict__ dgamma_part,
+                      float* __restrict__ dbeta_part, float* __restrict__ ds,
+                      float* __restrict__ dt, Plan p, int silu, int p_dt, int s_dt) {
+  constexpr int E = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char gn_smem[];
+  const Smem m = smem_of<T>(gn_smem, p, true);
+  const int gp4 = round4(p.gpset);
+  const unsigned rank = cluster_rank();
+  const int cl = blockIdx.x / p.K;
+  const int gs = cl % p.n_gsets, n = cl / p.n_gsets;
+  const int row0 = static_cast<int>(rank) * p.rows_b;
+  const int nrows = max(0, min(p.rows_b, p.rows - row0));
+  uint4* tile_x = m.tile;
+  uint4* tile_dy = m.tile + static_cast<size_t>(p.rows_b) * p.Wv;
+  const Owner o = owner_of(p, nrows);
+  const int c0 = gs * p.W + o.v * E;
+  const size_t base = (static_cast<size_t>(n) * p.rows + row0) * p.C + c0;
+
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    issue_copies(tile_x, x + base, j, o, p);
+    issue_copies(tile_dy, dy + base, j, o, p);
+    cp_commit();
+  }
+  load_params(m.prm, gamma, beta, s, t, n, gs, p, p_dt, s_dt);
+  // 1 + s of group-set channel c
+  auto mod_s = [&](int c) { return MOD ? 1.f + m.prm[2 * p.W + c] : 1.f; };
+  // per channel: the group's statistics, gw and bw
+  float mean[E], rs[E], gw[E], bw[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const size_t ng = static_cast<size_t>(n) * p.G + gs * p.gpset + (o.v * E + e) / p.cpg;
+    mean[e] = o.worker ? mu[ng] : 0.f;
+    rs[e] = o.worker ? rstd[ng] : 0.f;
+  }
+  __syncthreads();  // prm
+  const int cv = o.worker ? o.v * E : 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const float ms = mod_s(cv + e);
+    gw[e] = m.prm[cv + e] * ms;
+    bw[e] = MOD ? m.prm[p.W + cv + e] * ms + m.prm[3 * p.W + cv + e] : m.prm[p.W + cv + e];
+  }
+  // dw of one element (x-hat, dy, channel e)
+  auto grad = [&](float xhat, float d, int e) {
+    if (!silu) return d;
+    const float w = xhat * gw[e] + bw[e];
+    const float sg = sigmoid(w);
+    return d * sg * (1.f + w * (1.f - sg));
+  };
+  float s0[E], s1[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) s0[e] = s1[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    wait_chunk(j);
+    for (int k = j * o.kc; k < min((j + 1) * o.kc, o.nk); ++k) {
+      const size_t i = static_cast<size_t>(o.l + k * p.lanes) * p.Wv + o.v;
+      float fx[E], fd[E];
+      unpack(tile_x[i], fx);
+      unpack(tile_dy[i], fd);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float xhat = (fx[e] - mean[e]) * rs[e];
+        const float dw = grad(xhat, fd[e], e);
+        s0[e] += dw;
+        s1[e] += dw * xhat;
+      }
+    }
+  }
+  channel_sums(s0, m, m.part, p, o);
+  channel_sums(s1, m, m.part + p.W, p, o);
+  cluster_sync(p.K);
+  // the cluster's S0 and S1 a channel, the K parts in rank order
+  for (int i = threadIdx.x; i < 2 * p.W; i += blockDim.x) m.tot[i] = cluster_sum(m.part + i, p.K);
+  if (p.K > 1) cluster_arrive();  // no read of another block's shared memory after here
+  __syncthreads();
+  if (rank == 0)
+    for (int c = threadIdx.x; c < p.W; c += blockDim.x) {
+      const float S0 = m.tot[c], S1 = m.tot[p.W + c], ms = mod_s(c);
+      const size_t nc = static_cast<size_t>(n) * p.C + gs * p.W + c;
+      dbeta_part[nc] = ms * S0;
+      dgamma_part[nc] = ms * S1;
+      if (MOD) {
+        ds[nc] = m.prm[c] * S1 + m.prm[p.W + c] * S0;
+        dt[nc] = S0;
+      }
+    }
+  // the group means m1, m2 of dz * gamma and dz * gamma * x-hat: a warp a
+  // group, its lanes by butterfly
+  {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+    for (int g = warp; g < p.gpset; g += nw) {
+      float v1 = 0.f, v2 = 0.f;
+      for (int c = g * p.cpg + lane; c < (g + 1) * p.cpg; c += 32) {
+        const float gwc = m.prm[c] * mod_s(c);
+        v1 += m.tot[c] * gwc;
+        v2 += m.tot[p.W + c] * gwc;
+      }
+      v1 = warp_sum(v1);
+      v2 = warp_sum(v2);
+      if (lane == 0) {
+        m.stat[g] = v1 / p.cnt;
+        m.stat[gp4 + g] = v2 / p.cnt;
+      }
+    }
+  }
+  __syncthreads();
+
+  // dx = rstd * (dz * gamma - m1 - x-hat * m2), dz * gamma = dw * gw, from
+  // shared memory
+  if (o.worker) {
+    float m1[E], m2[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int g = (o.v * E + e) / p.cpg;
+      m1[e] = m.stat[g];
+      m2[e] = m.stat[gp4 + g];
+    }
+    T* dst = dx + base;
+    for (int k = 0; k < o.nk; ++k) {
+      const int r = o.l + k * p.lanes;
+      const size_t i = static_cast<size_t>(r) * p.Wv + o.v;
+      float fx[E], fd[E];
+      unpack(tile_x[i], fx);
+      unpack(tile_dy[i], fd);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float xhat = (fx[e] - mean[e]) * rs[e];
+        fx[e] = rs[e] * (grad(xhat, fd[e], e) * gw[e] - m1[e] - xhat * m2[e]);
+      }
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * p.C) = pack(fx);
+    }
+  }
+  if (p.K > 1) cluster_wait();  // no block leaves while another may read its shared memory
+}
+
 bool bad_shape(int N, int rows, int C, int G) {
   return N <= 0 || rows <= 0 || C <= 0 || G <= 0 || C % G != 0 ||
          static_cast<long long>(N) * G > 0x7fffffffLL;
 }
 
 bool bad_type(int dt) { return dt != kF32 && dt != kBF16; }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta, const void* s,
@@ -355,12 +908,19 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta, const
   return cudaGetLastError();
 }
 
+cudaError_t launch_reduce(const float* dgamma_part, const float* dbeta_part, float* dgamma,
+                          float* dbeta, int N, int C, cudaStream_t st) {
+  gn_bwd_reduce_kernel<<<(C + kMaxThreads - 1) / kMaxThreads, kMaxThreads, 0, st>>>(
+      dgamma_part, dbeta_part, dgamma, dbeta, N, C);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* gamma, const void* beta, const void* s,
                        const void* t, const float* mu, const float* rstd, const void* dy,
                        void* dx, float* dgamma_part, float* dbeta_part, float* ds, float* dt,
-                       float* dgamma, float* dbeta, int N, int rows, int C, int G, int silu,
-                       int p_dt, int s_dt, cudaStream_t st) {
+                       int N, int rows, int C, int G, int silu, int p_dt, int s_dt,
+                       cudaStream_t st) {
   const size_t smem = bwd_smem_bytes(C / G);
   auto kern = &gn_bwd_kernel<T>;
   if (smem > 48 * 1024) {
@@ -371,29 +931,156 @@ cudaError_t launch_bwd(const void* x, const void* gamma, const void* beta, const
   kern<<<N * G, block_threads(C / G), smem, st>>>(
       static_cast<const T*>(x), gamma, beta, s, t, mu, rstd, static_cast<const T*>(dy),
       static_cast<T*>(dx), dgamma_part, dbeta_part, ds, dt, rows, C, G, silu, p_dt, s_dt);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gn_bwd_reduce_kernel<<<(C + kMaxThreads - 1) / kMaxThreads, kMaxThreads, 0, st>>>(
-      dgamma_part, dbeta_part, dgamma, dbeta, N, C);
   return cudaGetLastError();
+}
+
+// The cluster route's Plan from the wrapper's numbers (groups a set, cluster
+// size, rows a block, row lanes), or false where they do not describe a plan
+// the kernels take; `smem` its dynamic shared memory.
+bool make_plan(int N, int rows, int C, int G, int es, int gpset, int K, int rows_b, int lanes,
+               bool bwd, Plan* p, size_t* smem) {
+  if (gpset <= 0 || G % gpset != 0 || K < 1 || K > kClusterMax || rows_b < 1 || lanes < 1 ||
+      (static_cast<long long>(C) * es) % 16 != 0)
+    return false;
+  const int E = 16 / es, cpg = C / G;
+  const long long W = static_cast<long long>(gpset) * cpg;
+  if ((W * es) % 16 != 0 || static_cast<long long>(K) * rows_b < rows) return false;
+  p->rows = rows;
+  p->C = C;
+  p->G = G;
+  p->cpg = cpg;
+  p->gpset = gpset;
+  p->W = static_cast<int>(W);
+  p->Wv = static_cast<int>(W / E);
+  p->n_gsets = G / gpset;
+  p->K = K;
+  p->rows_b = rows_b;
+  p->lanes = lanes;
+  p->T = p->Wv * lanes;
+  p->cnt = static_cast<float>(rows) * static_cast<float>(cpg);
+  if (p->T > kClusterThreads || static_cast<long long>(K) * p->n_gsets * N > 0x7fffffffLL)
+    return false;
+  *smem = cluster_smem_bytes(*p, bwd, es);
+  return *smem <= static_cast<size_t>(kSmemBlockMax);
+}
+
+// a launch configuration of grid K x group-sets x N in clusters of K
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+
+  ClusterLaunch(const Plan& p, int N, size_t smem, cudaStream_t st) : cfg{} {
+    cfg.gridDim = dim3(static_cast<unsigned>(p.K) * p.n_gsets * N);
+    cfg.blockDim = dim3((p.T + 31) / 32 * 32);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.K;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = p.K > 1 ? 1 : 0;  // a cluster of one block launches as a plain grid
+  }
+};
+
+// the kernel's attributes for a launch of `smem` bytes in clusters of K
+template <typename Kern>
+cudaError_t prepare_cluster(Kern kern, size_t smem, int K) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess && K > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+template <typename T>
+cudaError_t launch_fwd_cluster(const void* x, const void* gamma, const void* beta, const void* s,
+                               const void* t, void* y, float* mu, float* rstd, int N,
+                               const Plan& p, size_t smem, float eps, int silu, int p_dt,
+                               int s_dt, cudaStream_t st) {
+  auto kern = &gn_fwd_cluster_kernel<T>;
+  cudaError_t err = prepare_cluster(kern, smem, p.K);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(p, N, smem, st);
+  err = cudaLaunchKernelEx(&l.cfg, kern, static_cast<const T*>(x), gamma, beta, s, t,
+                           static_cast<T*>(y), mu, rstd, p, eps, silu, p_dt, s_dt);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, bool MOD>
+cudaError_t launch_bwd_cluster(const void* x, const void* gamma, const void* beta, const void* s,
+                               const void* t, const float* mu, const float* rstd, const void* dy,
+                               void* dx, float* dgamma_part, float* dbeta_part, float* ds,
+                               float* dt, int N, const Plan& p, size_t smem, int silu, int p_dt,
+                               int s_dt, cudaStream_t st) {
+  auto kern = &gn_bwd_cluster_kernel<T, MOD>;
+  cudaError_t err = prepare_cluster(kern, smem, p.K);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(p, N, smem, st);
+  err = cudaLaunchKernelEx(&l.cfg, kern, static_cast<const T*>(x), gamma, beta, s, t, mu, rstd,
+                           static_cast<const T*>(dy), static_cast<T*>(dx), dgamma_part,
+                           dbeta_part, ds, dt, p, silu, p_dt, s_dt);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_cluster(const void* x, const void* gamma, const void* beta, const void* s,
+                        const void* t, const float* mu, const float* rstd, const void* dy,
+                        void* dx, float* gp, float* bp, float* fs, float* ft, int N,
+                        const Plan& p, size_t smem, int silu, int p_dt, int s_dt,
+                        cudaStream_t st) {
+  if (s != nullptr)
+    return launch_bwd_cluster<T, true>(x, gamma, beta, s, t, mu, rstd, dy, dx, gp, bp, fs, ft, N,
+                                       p, smem, silu, p_dt, s_dt, st);
+  return launch_bwd_cluster<T, false>(x, gamma, beta, s, t, mu, rstd, dy, dx, gp, bp, fs, ft, N,
+                                      p, smem, silu, p_dt, s_dt, st);
+}
+
+// clusters of the kernel the plan launches that the card holds at once
+template <typename Kern>
+int active_clusters(Kern kern, const Plan& p, size_t smem) {
+  if (prepare_cluster(kern, smem, p.K) != cudaSuccess) return -1;
+  ClusterLaunch l(p, 1, smem, nullptr);
+  l.cfg.numAttrs = 1;  // the query takes the cluster dimension, also of one block
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kern, &l.cfg) != cudaSuccess) return -1;
+  return n;
 }
 
 }  // namespace
 
 // C entries bound with ctypes.  Type codes: 0 = float32, 1 = bfloat16;
 // x_dt for x and y (dy and dx), p_dt for gamma and beta, s_dt for s and t
-// (null s and t: no modulation).  act: 0 = none, 1 = silu.  They return the
-// cudaError_t of the launches (0 on success) and do not synchronise.
+// (null s and t: no modulation).  act: 0 = none, 1 = silu.  route: 0 =
+// rowwise, 1 = cluster with the plan (gpset, K, rows_b, lanes) of
+// `ops/groupnorm.py:group_norm_plan`.  They return the cudaError_t of the
+// launches (0 on success; cudaErrorInvalidValue for arguments or a plan the
+// kernels do not take) and do not synchronise.
 extern "C" int prt_group_norm_fwd(const void* x, const void* gamma, const void* beta,
                                   const void* s, const void* t, void* y, void* mu, void* rstd,
                                   int N, int rows, int C, int G, float eps, int act, int x_dt,
-                                  int p_dt, int s_dt, void* stream) {
+                                  int p_dt, int s_dt, int route, int gpset, int K, int rows_b,
+                                  int lanes, void* stream) {
   if (bad_shape(N, rows, C, G) || (s == nullptr) != (t == nullptr) || (act != 0 && act != 1) ||
-      bad_type(x_dt) || bad_type(p_dt) || (s != nullptr && bad_type(s_dt)))
+      bad_type(x_dt) || bad_type(p_dt) || (s != nullptr && bad_type(s_dt)) ||
+      (route != 0 && route != 1))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mu);
   float* r = static_cast<float*>(rstd);
+  if (route == 1) {
+    Plan p;
+    size_t smem;
+    const int es = x_dt == kF32 ? 4 : 2;
+    if (!make_plan(N, rows, C, G, es, gpset, K, rows_b, lanes, false, &p, &smem) ||
+        !aligned16(x) || !aligned16(y))
+      return cudaErrorInvalidValue;
+    if (x_dt == kF32)
+      return launch_fwd_cluster<float>(x, gamma, beta, s, t, y, m, r, N, p, smem, eps, act, p_dt,
+                                       s_dt, st);
+    return launch_fwd_cluster<__nv_bfloat16>(x, gamma, beta, s, t, y, m, r, N, p, smem, eps, act,
+                                             p_dt, s_dt, st);
+  }
   if (x_dt == kF32)
     return launch_fwd<float>(x, gamma, beta, s, t, y, m, r, N, rows, C, G, eps, act, p_dt, s_dt, st);
   return launch_fwd<__nv_bfloat16>(x, gamma, beta, s, t, y, m, r, N, rows, C, G, eps, act, p_dt,
@@ -404,11 +1091,11 @@ extern "C" int prt_group_norm_bwd(const void* x, const void* gamma, const void* 
                                   const void* s, const void* t, const void* mu, const void* rstd,
                                   const void* dy, void* dx, void* dgamma_part, void* dbeta_part,
                                   void* ds, void* dt, void* dgamma, void* dbeta, int N, int rows,
-                                  int C, int G, int act, int x_dt, int p_dt, int s_dt,
-                                  void* stream) {
+                                  int C, int G, int act, int x_dt, int p_dt, int s_dt, int route,
+                                  int gpset, int K, int rows_b, int lanes, void* stream) {
   if (bad_shape(N, rows, C, G) || (s == nullptr) != (t == nullptr) || (act != 0 && act != 1) ||
       bad_type(x_dt) || bad_type(p_dt) || (s != nullptr && bad_type(s_dt)) ||
-      (s != nullptr && (ds == nullptr || dt == nullptr)))
+      (s != nullptr && (ds == nullptr || dt == nullptr)) || (route != 0 && route != 1))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mu);
@@ -417,13 +1104,48 @@ extern "C" int prt_group_norm_bwd(const void* x, const void* gamma, const void* 
   float* bp = static_cast<float*>(dbeta_part);
   float* fs = static_cast<float*>(ds);
   float* ft = static_cast<float*>(dt);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
+  cudaError_t err;
+  if (route == 1) {
+    Plan p;
+    size_t smem;
+    const int es = x_dt == kF32 ? 4 : 2;
+    if (!make_plan(N, rows, C, G, es, gpset, K, rows_b, lanes, true, &p, &smem) ||
+        !aligned16(x) || !aligned16(dy) || !aligned16(dx))
+      return cudaErrorInvalidValue;
+    err = x_dt == kF32 ? bwd_cluster<float>(x, gamma, beta, s, t, m, r, dy, dx, gp, bp, fs, ft, N,
+                                            p, smem, act, p_dt, s_dt, st)
+                       : bwd_cluster<__nv_bfloat16>(x, gamma, beta, s, t, m, r, dy, dx, gp, bp,
+                                                    fs, ft, N, p, smem, act, p_dt, s_dt, st);
+  } else {
+    err = x_dt == kF32 ? launch_bwd<float>(x, gamma, beta, s, t, m, r, dy, dx, gp, bp, fs, ft, N,
+                                           rows, C, G, act, p_dt, s_dt, st)
+                       : launch_bwd<__nv_bfloat16>(x, gamma, beta, s, t, m, r, dy, dx, gp, bp, fs,
+                                                   ft, N, rows, C, G, act, p_dt, s_dt, st);
+  }
+  if (err != cudaSuccess) return err;
+  return launch_reduce(gp, bp, static_cast<float*>(dgamma), static_cast<float*>(dbeta), N, C, st);
+}
+
+// The clusters of a cluster-route launch the card holds at once
+// (cudaOccupancyMaxActiveClusters) for the plan at (rows, C, G), or -1 where
+// the plan is not one the kernels take or the query fails.  bwd: 0 forward, 1
+// backward (mod: with scale and shift).
+extern "C" int prt_group_norm_active_clusters(int bwd, int mod, int x_dt, int rows, int C, int G,
+                                              int gpset, int K, int rows_b, int lanes) {
+  Plan p;
+  size_t smem;
+  if (bad_shape(1, rows, C, G) || bad_type(x_dt) ||
+      !make_plan(1, rows, C, G, x_dt == kF32 ? 4 : 2, gpset, K, rows_b, lanes, bwd != 0, &p,
+                 &smem))
+    return -1;
+  if (!bwd)
+    return x_dt == kF32 ? active_clusters(&gn_fwd_cluster_kernel<float>, p, smem)
+                        : active_clusters(&gn_fwd_cluster_kernel<__nv_bfloat16>, p, smem);
   if (x_dt == kF32)
-    return launch_bwd<float>(x, gamma, beta, s, t, m, r, dy, dx, gp, bp, fs, ft, dg, db, N, rows,
-                             C, G, act, p_dt, s_dt, st);
-  return launch_bwd<__nv_bfloat16>(x, gamma, beta, s, t, m, r, dy, dx, gp, bp, fs, ft, dg, db, N,
-                                   rows, C, G, act, p_dt, s_dt, st);
+    return mod ? active_clusters(&gn_bwd_cluster_kernel<float, true>, p, smem)
+               : active_clusters(&gn_bwd_cluster_kernel<float, false>, p, smem);
+  return mod ? active_clusters(&gn_bwd_cluster_kernel<__nv_bfloat16, true>, p, smem)
+             : active_clusters(&gn_bwd_cluster_kernel<__nv_bfloat16, false>, p, smem);
 }
 
 extern "C" const char* prt_group_norm_error_string(int err) {

@@ -20,18 +20,25 @@ their ``launches``; for CPU tensors they run the plain versions
 There is no fallback between the two: a CUDA tensor the kernels do not
 take raises.  :func:`fused_group_norm` is the differentiable entry with
 the JAX signature.
+
+:func:`group_norm_plan` picks the kernels' route and tiling from the
+shape alone: the cluster route (a thread-block cluster holds a (sample,
+group-set) slice in shared memory, read from device memory once) where
+the channels are 16-byte aligned and the slice fits, else the rowwise
+route (one block per (sample, group)).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
 __all__ = ["fused_group_norm", "fused_group_norm_fwd", "fused_group_norm_bwd",
-           "fused_group_norm_fwd_plain", "fused_group_norm_bwd_plain"]
+           "fused_group_norm_fwd_plain", "fused_group_norm_bwd_plain",
+           "GroupNormPlan", "group_norm_plan"]
 
 _ACTS = {"none": 0, "silu": 1}
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -119,6 +126,122 @@ def fused_group_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The kernels' plan, from the shape alone
+# ---------------------------------------------------------------------------
+# The H100 the plan is cut for: a block's most shared memory; the most two
+# blocks of one SM can each take ((228 KB - 2 x 1 KB reserved) / 2)
+GN_SMEM_BLOCK = 232_448
+GN_SMEM_PAIR = 115_712
+# the largest cluster (non-portable above 8) and a block's most threads
+# (``kClusterMax``, ``kClusterThreads`` in ``csrc/groupnorm.cu``)
+GN_CLUSTER_MAX = 16
+GN_THREADS = 256
+# the fewest blocks a launch keeps when group-sets widen: about two an SM
+GN_WAVE_BLOCKS = 256
+
+
+class GroupNormPlan(NamedTuple):
+    """How :func:`fused_group_norm_fwd` / ``_bwd`` launch.  ``route`` is
+    ``"cluster"`` or ``"rowwise"``; the other fields describe the cluster
+    route: ``groups_per_set`` whole groups a group-set (a multiple of 16
+    bytes wide), ``cluster`` blocks a (sample, group-set) slice, each of
+    ``rows_per_block`` rows, ``lanes`` row lanes of one 16-byte vector a
+    thread, ``threads`` a block, ``smem_bytes`` of dynamic shared memory
+    a block.  ``reason`` says why a shape takes the rowwise route."""
+    route: str
+    groups_per_set: int = 0
+    cluster: int = 0
+    rows_per_block: int = 0
+    lanes: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+    reason: str = ""
+
+
+def _cluster_smem(rows_b: int, lanes: int, width: int, gpset: int,
+                  itemsize: int, bwd: bool) -> int:
+    """``csrc/groupnorm.cu:cluster_smem_bytes``: the resident tiles (x;
+    and dy in the backward), the row lanes' per-channel sums, the
+    group-set's parameters, and the reduction and exchange buffers."""
+    gp4 = (gpset + 3) // 4 * 4
+    tiles = (2 if bwd else 1) * rows_b * width * itemsize
+    floats = (lanes * width + 4 * width + GN_THREADS
+              + (4 * width + 2 * gp4 if bwd else 4 * gp4))
+    return tiles + 4 * floats
+
+
+def group_norm_plan(n: int, rows: int, c: int, groups: int,
+                    dtype: torch.dtype, kind: str = "fwd") -> GroupNormPlan:
+    """The route and tiling of one call on ``[n, rows, c]`` of ``dtype``
+    (``kind`` ``"fwd"`` or ``"bwd"``), from the shape alone.
+
+    The cluster route takes a group-set of the fewest whole groups whose
+    width is a multiple of 16 bytes; the forward first tries 32 bytes (a
+    sector: each row's strips then share no sector between blocks) and
+    keeps it where its slice fits two blocks an SM within 16 blocks a
+    cluster (the backward, with twice the bytes a slice, ran slower so:
+    larger clusters, fewer of them resident).  One thread takes a 16-byte
+    vector of the group-set and ``256 // vectors`` row lanes.  A
+    slice that one block holds within ``GN_SMEM_PAIR`` (two blocks an SM)
+    takes one block a cluster, and its group-set doubles while that still
+    holds and the launch keeps ``GN_WAVE_BLOCKS`` blocks.  A larger slice
+    takes the smallest cluster whose blocks fit ``GN_SMEM_PAIR``; failing
+    that, 16 blocks of up to ``GN_SMEM_BLOCK``.  The rowwise route takes C
+    whose rows are not a multiple of 16 bytes, group-sets wider than 256
+    vectors and slices past 16 blocks' shared memory."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    bwd = kind == "bwd"
+    if c * itemsize % 16:
+        return GroupNormPlan("rowwise", reason="C * itemsize is not a "
+                             "multiple of 16 bytes")
+    cpg = c // groups
+
+    def vectors(g: int) -> int:
+        return g * cpg * itemsize // 16
+
+    def smem(g: int, k: int) -> int:
+        rows_b = -(-rows // k)
+        lanes = min(GN_THREADS // vectors(g), rows_b)
+        return _cluster_smem(rows_b, lanes, g * cpg, g, itemsize, bwd)
+
+    def fewest(align: int) -> Optional[int]:
+        return next((d for d in range(1, groups + 1) if groups % d == 0
+                     and d * cpg * itemsize % align == 0
+                     and vectors(d) <= GN_THREADS), None)
+
+    candidates = [g for g in dict.fromkeys(
+        ((fewest(32),) if not bwd else ()) + (fewest(16),)) if g is not None]
+    if not candidates:
+        return GroupNormPlan("rowwise", reason="a group-set wider than a "
+                             "block's threads")
+    gpset = k = None
+    for g in candidates:
+        k = next((k for k in range(1, GN_CLUSTER_MAX + 1)
+                  if smem(g, k) <= GN_SMEM_PAIR), None)
+        if k is not None:
+            gpset = g
+            break
+    if gpset is None:
+        gpset, k = candidates[-1], GN_CLUSTER_MAX
+        if smem(gpset, k) > GN_SMEM_BLOCK:
+            return GroupNormPlan("rowwise", reason="the slice is past a "
+                                 "cluster's shared memory")
+    if k == 1:
+        while (groups % (2 * gpset) == 0
+               and vectors(2 * gpset) <= GN_THREADS
+               and smem(2 * gpset, 1) <= GN_SMEM_PAIR
+               and n * groups // (2 * gpset) >= GN_WAVE_BLOCKS):
+            gpset *= 2
+    rows_b = -(-rows // k)
+    k = -(-rows // rows_b)                # no block without rows
+    lanes = min(GN_THREADS // vectors(gpset), rows_b)
+    return GroupNormPlan(
+        "cluster", gpset, k, rows_b, lanes,
+        (vectors(gpset) * lanes + 31) // 32 * 32,
+        _cluster_smem(rows_b, lanes, gpset * cpg, gpset, itemsize, bwd))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 def _check_args(x, weight, bias, scale, shift, groups, act) -> None:
@@ -176,10 +299,11 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.prt_group_norm_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.prt_group_norm_fwd.argtypes = ([p] * 8 + [i] * 4
-                                           + [ctypes.c_float] + [i] * 4 + [p])
-        lib.prt_group_norm_bwd.argtypes = [p] * 15 + [i] * 8 + [p]
-        lib.prt_group_norm_fwd.restype = ctypes.c_int
-        lib.prt_group_norm_bwd.restype = ctypes.c_int
+                                           + [ctypes.c_float] + [i] * 9 + [p])
+        lib.prt_group_norm_bwd.argtypes = [p] * 15 + [i] * 13 + [p]
+        lib.prt_group_norm_active_clusters.argtypes = [i] * 10
+        for fn in ("fwd", "bwd", "active_clusters"):
+            getattr(lib, f"prt_group_norm_{fn}").restype = ctypes.c_int
         lib.prt_group_norm_error_string.argtypes = [ctypes.c_int]
         lib.prt_group_norm_error_string.restype = ctypes.c_char_p
     return lib
@@ -200,6 +324,30 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _plan_args(plan: GroupNormPlan, *tensors: torch.Tensor) -> tuple:
+    """The plan as the C entries take it: ``(route, groups_per_set,
+    cluster, rows_per_block, lanes)``; the rowwise route where one of
+    ``tensors`` does not start on 16 bytes (a view into another tensor),
+    as the cluster route's 16-byte copies need."""
+    if plan.route == "cluster" and all(t.data_ptr() % 16 == 0
+                                       for t in tensors):
+        return (1, plan.groups_per_set, plan.cluster, plan.rows_per_block,
+                plan.lanes)
+    return (0, 0, 0, 0, 0)
+
+
+def active_clusters(plan: GroupNormPlan, rows: int, c: int, groups: int,
+                    dtype: torch.dtype, kind: str = "fwd",
+                    mod: bool = False) -> int:
+    """Clusters of a cluster-route plan's launch the current CUDA device
+    holds at once (``cudaOccupancyMaxActiveClusters``); -1 if the kernels
+    do not take the plan."""
+    return _kernel_lib().prt_group_norm_active_clusters(
+        int(kind == "bwd"), int(mod), _KERNEL_DTYPES[dtype], rows, c,
+        groups, plan.groups_per_set, plan.cluster, plan.rows_per_block,
+        plan.lanes)
+
+
 def _device_kind(x: torch.Tensor) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused_group_norm for device {x.device}")
@@ -212,7 +360,7 @@ def fused_group_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
                          epsilon: float = 1e-5, act: str = "none"
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward on ``x [N, rows, C]``: ``(y, mu, rstd)``.  CUDA tensors
-    launch the kernel (one block per (sample, group)); CPU tensors run
+    launch the kernel of :func:`group_norm_plan`'s route; CPU tensors run
     :func:`fused_group_norm_fwd_plain`."""
     _check_args(x, weight, bias, scale, shift, groups, act)
     if _device_kind(x) == "cpu":
@@ -224,12 +372,14 @@ def fused_group_norm_fwd(x: torch.Tensor, weight: torch.Tensor,
     y = torch.empty_like(x)
     mu = torch.empty(n, groups, dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mu)
+    plan = group_norm_plan(n, rows, c, groups, x.dtype, "fwd")
     _launch("fused_group_norm", "prt_group_norm_fwd", x.device,
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(scale),
             _ptr(shift), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), n,
             rows, c, groups, float(epsilon), _ACTS[act],
             _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[weight.dtype],
-            _KERNEL_DTYPES[scale.dtype] if scale is not None else 0)
+            _KERNEL_DTYPES[scale.dtype] if scale is not None else 0,
+            *_plan_args(plan, x, y))
     fused_group_norm_fwd.launches += 1
     return y, mu, rstd
 
@@ -241,8 +391,9 @@ def fused_group_norm_bwd(x: torch.Tensor, weight: torch.Tensor,
                          act: str = "none"):
     """Backward on ``x [N, rows, C]``: ``(dx, dweight, dbias, dscale,
     dshift)`` as :func:`fused_group_norm_bwd_plain` gives them.  CUDA
-    tensors launch the kernel and its fixed-order reduction of dweight /
-    dbias over N; CPU tensors run the plain version."""
+    tensors launch the kernel of :func:`group_norm_plan`'s route and the
+    fixed-order reduction of dweight / dbias over N (two launches); CPU
+    tensors run the plain version."""
     _check_args(x, weight, bias, scale, shift, groups, act)
     if _device_kind(x) == "cpu":
         return fused_group_norm_bwd_plain(x, weight, bias, scale, shift, mu,
@@ -256,6 +407,7 @@ def fused_group_norm_bwd(x: torch.Tensor, weight: torch.Tensor,
     parts = torch.empty(2, n, c, **f32)
     dw_db = torch.empty(2, c, **f32)
     ds_dt = torch.empty(2, n, c, **f32) if scale is not None else None
+    plan = group_norm_plan(n, rows, c, groups, x.dtype, "bwd")
     _launch("fused_group_norm_bwd", "prt_group_norm_bwd", x.device,
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(scale),
             _ptr(shift), mu.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
@@ -264,7 +416,8 @@ def fused_group_norm_bwd(x: torch.Tensor, weight: torch.Tensor,
             None if ds_dt is None else ds_dt[1].data_ptr(),
             dw_db[0].data_ptr(), dw_db[1].data_ptr(), n, rows, c, groups,
             _ACTS[act], _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[weight.dtype],
-            _KERNEL_DTYPES[scale.dtype] if scale is not None else 0)
+            _KERNEL_DTYPES[scale.dtype] if scale is not None else 0,
+            *_plan_args(plan, x, dy, dx))
     fused_group_norm_bwd.launches += 1
     ds, dt = (None, None) if ds_dt is None else (ds_dt[0], ds_dt[1])
     return dx, dw_db[0], dw_db[1], ds, dt

@@ -214,3 +214,117 @@ def test_non_contiguous_input_is_copied_and_counted():
     want = fused_group_norm(t["x"], t["w"], t["b"], groups=4, act="silu")
     assert fused_group_norm.copies == before + 1
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' plan (pure Python; the kernels index their tiles as
+# ``_plan_blocks`` and the thread tiling below say)
+# ---------------------------------------------------------------------------
+# (N, rows, C, groups, dtype, route): the SD-UNet training step's 14 (rows, C)
+# shapes at batch 32 in bfloat16, then the chip smoke's other cases
+PLAN_CASES = {
+    **{f"unet_{rows}x{c}": (32, rows, c, 32, torch.bfloat16, "cluster")
+       for rows, c in ((4096, 320), (4096, 640), (4096, 960), (1024, 320),
+                       (1024, 640), (1024, 960), (1024, 1280), (1024, 1920),
+                       (256, 640), (256, 1280), (256, 1920), (256, 2560),
+                       (64, 1280), (64, 2560))},
+    "f32_4096x320": (32, 4096, 320, 32, torch.float32, "cluster"),
+    "f32_256x1280": (32, 256, 1280, 32, torch.float32, "cluster"),
+    "f32_64x2560": (32, 64, 2560, 32, torch.float32, "cluster"),
+    "odd_rows_63x640_g16": (32, 63, 640, 16, torch.bfloat16, "cluster"),
+    "g2_cpg320_f32": (8, 1024, 640, 2, torch.float32, "cluster"),
+    "g4_cpg10_4095x40": (4, 4095, 40, 4, torch.bfloat16, "cluster"),
+    "cpg2_c64_g32": (2, 100, 64, 32, torch.bfloat16, "cluster"),
+    "unaligned_c36_g4": (2, 4096, 36, 4, torch.bfloat16, "rowwise"),
+    "unaligned_c44_g4_odd": (2, 49, 44, 4, torch.bfloat16, "rowwise"),
+    "past_cluster_65536x320": (2, 65536, 320, 32, torch.bfloat16,
+                               "rowwise"),
+    "past_cluster_f32_bwd_only": (1, 2048, 640, 2, torch.float32, None),
+}
+
+
+def _plan_blocks(plan, n, rows, c, groups):
+    """The tiles of a cluster-route launch as the kernels index them
+    (``csrc/groupnorm.cu``: block x is rank x % cluster of the cluster x /
+    cluster, whose slice is sample cl / group-sets, group-set cl %
+    group-sets): ``(sample, rows range, channels range)`` a block, in
+    launch order."""
+    width = plan.groups_per_set * (c // groups)
+    for s in range(n):
+        for gs in range(groups // plan.groups_per_set):
+            for rank in range(plan.cluster):
+                r0 = rank * plan.rows_per_block
+                yield (s, range(r0, min(rows, r0 + plan.rows_per_block)),
+                       range(gs * width, (gs + 1) * width))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_group_norm_plan(name, kind):
+    """Every (n, row, channel) in exactly one block's tile and one thread's
+    16-byte vector; every group whole in one group-set; a block's shared
+    memory within the card's 232,448 bytes; every copy 16-byte aligned;
+    the unaligned C and the slices past a cluster's shared memory on the
+    rowwise route."""
+    n, rows, c, groups, dtype, route = PLAN_CASES[name]
+    plan = gn.group_norm_plan(n, rows, c, groups, dtype, kind)
+    if route is None:       # a slice that fits forward but not backward
+        route = "cluster" if kind == "fwd" else "rowwise"
+    assert plan.route == route, plan
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if route == "rowwise":
+        assert plan.reason
+        return
+    cpg = c // groups
+    width = plan.groups_per_set * cpg
+    vec = 16 // itemsize
+    assert groups % plan.groups_per_set == 0
+    assert (c * itemsize) % 16 == 0 and (width * itemsize) % 16 == 0
+    assert 1 <= plan.cluster <= gn.GN_CLUSTER_MAX
+    assert plan.smem_bytes <= gn.GN_SMEM_BLOCK
+    assert plan.smem_bytes == gn._cluster_smem(
+        plan.rows_per_block, plan.lanes, width, plan.groups_per_set,
+        itemsize, kind == "bwd")
+    vectors = width // vec
+    assert vectors * plan.lanes <= plan.threads <= gn.GN_THREADS
+    assert plan.threads % 32 == 0
+    # the blocks' tiles, sample by sample
+    seen = np.zeros((rows, c), np.int32)
+    sample, blocks = 0, 0
+    for s, rr, cc in _plan_blocks(plan, n, rows, c, groups):
+        if s != sample:
+            assert (seen == 1).all() and s == sample + 1
+            seen[:] = 0
+            sample = s
+        assert len(rr) > 0, "a block without rows"
+        assert cc.start % cpg == 0 and len(cc) == width   # whole groups
+        assert len(rr) <= plan.rows_per_block
+        seen[rr.start:rr.stop, cc.start:cc.stop] += 1
+        blocks += 1
+    assert (seen == 1).all() and sample == n - 1
+    assert blocks == n * (groups // plan.groups_per_set) * plan.cluster
+    # one block's rows over its threads: thread (v, l) owns vector v of rows
+    # l, l + lanes, ... (``owner_of`` in csrc/groupnorm.cu)
+    for nrows in {plan.rows_per_block,
+                  rows - (plan.cluster - 1) * plan.rows_per_block}:
+        own = np.zeros((nrows, vectors), np.int32)
+        for tid in range(vectors * plan.lanes):
+            v, lane = tid % vectors, tid // vectors
+            own[lane:nrows:plan.lanes, v] += 1
+        assert (own == 1).all()
+    # every 16-byte copy starts on 16 bytes: (row * C + group-set start + v *
+    # vec) elements
+    starts = (np.arange(groups // plan.groups_per_set)[:, None] * width
+              + np.arange(vectors)[None, :] * vec) * itemsize
+    assert (starts % 16 == 0).all() and (c * itemsize) % 16 == 0
+
+
+def test_group_norm_plan_routes_by_alignment():
+    """A tensor that does not start on 16 bytes takes the rowwise route;
+    the plan's cluster route otherwise."""
+    plan = gn.group_norm_plan(2, 64, 640, 32, torch.bfloat16, "fwd")
+    x = torch.zeros(2 * 64 * 640 + 1, dtype=torch.bfloat16)
+    assert gn._plan_args(plan, x[:-1])[0] == 1
+    assert gn._plan_args(plan, x[1:])[0] == 0
+    assert gn._plan_args(
+        gn.group_norm_plan(2, 64, 36, 4, torch.bfloat16, "fwd"), x)[0] == 0

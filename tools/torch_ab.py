@@ -32,9 +32,20 @@ other.  Each turn builds its tree's kernels and times them with its tree's
   tree makes apart from it);
 * ``stream``: ``int8_stream_matmul`` at every case of
   ``chip_smoke.matmul_cases`` (gpt3-350m's decode linears and LM head at
-  batch 8, float32 x, N = 97, 1 and 128 rows).
+  batch 8, float32 x, N = 97, 1 and 128 rows);
+* ``gn``: ``fused_group_norm_fwd`` and ``fused_group_norm_bwd`` (from the
+  turn's own forward's statistics) at every (rows, C, mode) of the SD-UNet
+  step at batch 32 in bf16, and ``chip_smoke.GN_EXTRA_CASES`` but the
+  misaligned view (float32, odd rows, other group counts, C 36, a slice
+  past a cluster's shared memory); each turn also sums the step's 56 calls
+  of each kernel;
+* ``unet``: the SD-UNet training step of the tree's own
+  ``chip_smoke.phase_unet_train`` (``bench.py:bench_unet``'s model, bf16,
+  batch 32 of 64x64x4, AdamW; 2 warm-up and 10 timed steps, then one
+  profiled step): step ms, images/s, the profiled step's device ms, idle
+  share and GroupNorm kernel ms (forward, backward).
 
-The inputs of ``dal``, ``decode``, ``int8mm`` and ``stream`` are made from
+The inputs of ``dal``, ``decode``, ``int8mm``, ``stream`` and ``gn`` are made from
 a seed by this script, the same in every turn.  A shape a tree's kernels refuse (a head dim it was
 not built for) is reported as null.  Prints one JSON line per turn and the
 card's name and power limit.  Run from the repository root on a machine
@@ -48,6 +59,8 @@ with a CUDA card::
     python3 tools/torch_ab.py decode archive_check/parent
     python3 tools/torch_ab.py int8mm archive_check/parent
     python3 tools/torch_ab.py stream archive_check/parent
+    python3 tools/torch_ab.py gn archive_check/parent
+    python3 tools/torch_ab.py unet archive_check/parent
 """
 from __future__ import annotations
 
@@ -250,6 +263,59 @@ print(json.dumps(out))
 '''
 
 
+# argv: the tree, this tree's GroupNorm cases (JSON: name, N, rows, C,
+# groups, act, modulated, dtype, calls a UNet step)
+GN_TURN = r'''
+import importlib, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+gn = importlib.import_module("paddle_ray_tpu_torch.ops.groupnorm")
+t = chip_smoke.time_ms
+out, step = {}, {"step_fwd": 0.0, "step_bwd": 0.0}
+for name, n, rows, c, groups, act, mod, dtype, calls in json.loads(sys.argv[2]):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(n + rows + c)
+    r = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    x = (1.5 * r(n, rows, c) + 0.5).to(dt)
+    dy = r(n, rows, c).to(dt)
+    w, b = (1.0 + 0.2 * r(c)).to(dt), (0.2 * r(c)).to(dt)
+    s = (0.3 * r(n, c)).to(dt) if mod else None
+    sh = (0.3 * r(n, c)).to(dt) if mod else None
+    kw = dict(groups=groups, act=act)
+    _, mu, rs = gn.fused_group_norm_fwd(x, w, b, s, sh, epsilon=1e-5, **kw)
+    out[name] = {
+        "fwd": t(lambda: gn.fused_group_norm_fwd(x, w, b, s, sh, epsilon=1e-5,
+                                                 **kw), iters=50),
+        "bwd": t(lambda: gn.fused_group_norm_bwd(x, w, b, s, sh, mu, rs, dy,
+                                                 **kw), iters=50)}
+    for kind in ("fwd", "bwd"):
+        step[f"step_{kind}"] += calls * out[name][kind]
+    del x, dy, mu, rs
+print(json.dumps({**step, **out}))
+'''
+
+
+# argv: the tree
+UNET_TURN = r'''
+import contextlib, io, json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+log = io.StringIO()
+with contextlib.redirect_stdout(log):
+    chip_smoke.phase_device()
+    chip_smoke.phase_unet_train()
+rows = {r["phase"]: r for r in map(json.loads, filter(
+    lambda l: l.startswith("{"), log.getvalue().splitlines()))}
+train, prof = rows["unet_train"], rows["unet_profile"]
+print(json.dumps({"step_ms": train["step_ms"],
+                  "images_per_s": train["images_per_s"],
+                  "profiled_device_ms": prof["device_ms"],
+                  "device_idle_share": prof["device_idle_share"],
+                  "group_norm_ms": prof["group_norm_ms"]}))
+'''
+
+
 def _flash_args() -> list:
     """This tree's bf16 flash cases and modes, and the rows the
     causal-segments mode leaves no visible key."""
@@ -299,16 +365,37 @@ def _stream_args() -> list:
                         in chip_smoke.matmul_cases()])]
 
 
+def _gn_args() -> list:
+    """The UNet step's bf16 (rows, C, mode) cases with their calls a step,
+    then ``chip_smoke.GN_EXTRA_CASES`` but the misaligned view (no calls
+    in the step)."""
+    import chip_smoke
+    calls = chip_smoke.unet_gn_calls()
+    n, groups = chip_smoke.UNET_BATCH, chip_smoke.UNET_CFG["groups"]
+    cases = []
+    for rows, c, mode in sorted(set(calls), key=lambda k: (-k[0], k[1], k[2])):
+        act, mod = chip_smoke.GN_MODES[mode]
+        cases.append([f"unet_{rows}x{c}_{mode}_bf16", n, rows, c, groups, act,
+                      mod, "bfloat16", calls.count((rows, c, mode))])
+    for name, n, rows, c, g, mode, dtype, misalign in \
+            chip_smoke.GN_EXTRA_CASES:
+        if not misalign:
+            act, mod = chip_smoke.GN_MODES[mode]
+            cases.append([name, n, rows, c, g, act, mod, dtype, 0])
+    return [json.dumps(cases)]
+
+
 KINDS = {"flash": (FLASH_TURN, _flash_args), "paged": (PAGED_TURN, _paged_args),
          "dal": (DAL_TURN, _dal_args), "decode": (DECODE_TURN, _decode_args),
          "int8mm": (INT8MM_TURN, _int8mm_args),
-         "stream": (STREAM_TURN, _stream_args)}
+         "stream": (STREAM_TURN, _stream_args), "gn": (GN_TURN, _gn_args),
+         "unet": (UNET_TURN, list)}
 
 
 def main() -> None:
     if len(sys.argv) != 3 or sys.argv[1] not in KINDS:
         raise SystemExit("usage: python3 tools/torch_ab.py "
-                         "{flash,paged,dal,decode,int8mm,stream} OTHER_TREE")
+                         "{flash,paged,dal,decode,int8mm,stream,gn,unet} OTHER_TREE")
     turn, make_args = KINDS[sys.argv[1]]
     trees = {"other": os.path.abspath(sys.argv[2]), "this": ROOT}
     sys.path.insert(0, ROOT)
