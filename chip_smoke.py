@@ -125,9 +125,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    than 32, and each route of ``group_norm_plan`` -- the cluster route at
    one and at 16 blocks a cluster, the rowwise route for C 36 (not a whole
    number of 16-byte vectors in bf16), for a slice past 16 blocks' shared
-   memory and for a view 2 bytes into its buffer.  Each case's line gives
-   both kernels' plans and routes, and the clusters the card holds at once;
-   each kernel runs twice and must give the same bits in every output.
+   memory and for a view 2 bytes into its buffer -- and large batches of
+   one-row slices at 4 channels a group and four-row ones at 1 (group-sets
+   of many groups).  Each case's line gives both kernels' plans and routes; each
+   kernel runs twice and must give the same bits in every output.  The C
+   entries must refuse a cluster plan with more groups a set than threads
+   a block, and one whose shared memory is not the kernels' layout.
    Forward within ``atol`` 1e-4 (float32) / 2e-2 plus one bfloat16
    rounding (``rtol`` 2**-8; bfloat16); statistics within 1e-4; gradients
    within ``max|err| / max|ref|`` 1e-4 / 2e-2.  The step's cases timed
@@ -1543,26 +1546,17 @@ def _gn_bound(kind, n, rows, c, groups, dtype, mode) -> dict:
             "bytes": n_bytes, "ops": ops}
 
 
-def _gn_route(n, rows, c, groups, dtype, mod, fwd_tensors,
-              bwd_tensors) -> dict:
-    """Each kernel's plan (``group_norm_plan``), the route the launch takes
-    with these tensors, and for the cluster route the clusters the card
-    holds at once (``cudaOccupancyMaxActiveClusters``; a plan the card
-    cannot hold fails here)."""
+def _gn_route(n, rows, c, groups, dtype, fwd_tensors, bwd_tensors) -> dict:
+    """Each kernel's plan (``group_norm_plan``) and the route the launch
+    takes with these tensors (a plan the card cannot hold has already
+    failed at its launch)."""
     from paddle_ray_tpu_torch.ops import groupnorm as gn
     out = {}
     for kind, ts in (("fwd", fwd_tensors), ("bwd", bwd_tensors)):
         plan = gn.group_norm_plan(n, rows, c, groups, dtype, kind)
         route = "cluster" if gn._plan_args(plan, *ts)[0] else "rowwise"
-        r = {**{k: v for k, v in plan._asdict().items()
-                if v not in ("", 0)}, "route": route}
-        if route == "cluster":
-            r["active_clusters"] = gn.active_clusters(
-                plan, rows, c, groups, dtype, kind, mod=mod)
-            if r["active_clusters"] <= 0:
-                raise AssertionError(f"group norm plan {plan} ({kind}, "
-                                     f"{rows} x {c}) holds no cluster")
-        out[kind] = r
+        out[kind] = {**{k: v for k, v in plan._asdict().items()
+                        if v not in ("", 0)}, "route": route}
     return out
 
 
@@ -1598,8 +1592,7 @@ def _gn_case(name, n, rows, c, groups, mode, dtype, timed,
     got = fused_group_norm_bwd(*bwd, **kw)
     got2 = fused_group_norm_bwd(*bwd, **kw)
     torch.cuda.synchronize()
-    route = _gn_route(n, rows, c, groups, dtype, mod, (x, y),
-                      (x, dy, got[0]))
+    route = _gn_route(n, rows, c, groups, dtype, (x, y), (x, dy, got[0]))
     same_bits = all(torch.equal(a, e) for a, e in zip(
         (y, mu, rs, *got), (*again, *got2)) if e is not None)
     want = fused_group_norm_bwd_plain(*bwd, **kw)
@@ -1664,7 +1657,9 @@ def _gn_case(name, n, rows, c, groups, mode, dtype, timed,
 # plan -- the cluster route at 1 block a cluster (64 rows) and at 16 (g2,
 # cpg10), the rowwise route for C * itemsize not a multiple of 16 bytes, for
 # a slice past 16 blocks' shared memory, and for a view that does not start
-# on 16 bytes
+# on 16 bytes; then a large batch of one- and four-row slices at cpg 4 and
+# 1, whose one-block slices widen to group-sets of many groups (at 4 rows and
+# cpg 1, 256 groups over the block's 256 threads)
 GN_EXTRA_CASES = (
     ("f32_4096x320_mod", UNET_BATCH, 4096, 320, 32, "mod", "float32", False),
     ("f32_256x1280_none", UNET_BATCH, 256, 1280, 32, "none", "float32",
@@ -1680,7 +1675,43 @@ GN_EXTRA_CASES = (
      "bfloat16", False),
     ("rowwise_misaligned_1024x640_silu_bf16", 4, 1024, 640, 32, "silu",
      "bfloat16", True),
+    ("n512_1x256_g64_cpg4_mod_bf16", 512, 1, 256, 64, "mod", "bfloat16",
+     False),
+    ("n1024_4x512_g512_cpg1_silu_f32", 1024, 4, 512, 512, "silu", "float32",
+     False),
 )
+
+
+def _gn_refusals() -> dict:
+    """The C entries refuse a cluster plan they cannot run, before any
+    launch: a group-set of more groups than the block has threads (the
+    statistics are written one group a thread; at ``[512, 1, 256]`` bf16,
+    G 64, 64 groups a set over 32 threads), and a plan whose shared
+    memory is not the kernels' own layout.  Each must raise."""
+    from paddle_ray_tpu_torch.ops import groupnorm as gn
+    n, rows, c, groups = 512, 1, 256, 64
+    x, w, b, _, _, _ = _gn_inputs(n, rows, c, False, torch.bfloat16)
+    y = torch.empty_like(x)
+    mu = torch.empty(n, groups, device="cuda")
+    rs = torch.empty_like(mu)
+    plan = gn.group_norm_plan(n, rows, c, groups, torch.bfloat16)
+    wide = gn._cluster_plan(rows, c // groups, 2, False, 64, 1)
+    bad = {"groups_over_threads": wide,
+           "smem_off_layout": plan._replace(smem_bytes=plan.smem_bytes + 16)}
+    out = {}
+    for name, p in bad.items():
+        try:
+            gn._launch("fused_group_norm", "prt_group_norm_fwd", x.device,
+                       x.data_ptr(), w.data_ptr(), b.data_ptr(), None, None,
+                       y.data_ptr(), mu.data_ptr(), rs.data_ptr(), n, rows,
+                       c, groups, GN_EPS, 0, 1, 1, 0, *gn._plan_args(p, x))
+        except RuntimeError:
+            out[name] = "refused"
+            continue
+        raise AssertionError(f"group norm plan {p} ({name}) was launched")
+    if wide.groups_per_set <= wide.threads:
+        raise AssertionError(f"{wide} is not a plan to refuse")
+    return out
 
 
 def phase_gn_kernel() -> dict:
@@ -1710,6 +1741,7 @@ def phase_gn_kernel() -> dict:
         routes |= {r["fwd"]["route"], r["bwd"]["route"]}
     if routes != {"cluster", "rowwise"}:
         raise AssertionError(f"group norm cases took routes {routes}")
+    emit("gn_plan_refusals", **_gn_refusals())
     # the step's 56 calls of each kernel, summed
     step = {kind: {k: sum(results[call][kind][k] for call in calls)
                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}

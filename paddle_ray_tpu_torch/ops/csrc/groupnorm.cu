@@ -89,8 +89,10 @@ __device__ __forceinline__ float load_param(const void* p, size_t i, int dt) {
                     : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
 }
 
-// 1 / (1 + e^-v) by the special-function unit (ex2 and rcp, a few ulp), 0
-// where e^-v overflows
+// 1 / (1 + e^-v) by the special-function unit (ex2 and rcp): a few ulp, and 0
+// where e^-v overflows.  expf and an IEEE division made the cluster kernels'
+// SiLU cases 1.15-1.6x slower on the H100 (PERF.md, PR 12); both routes use
+// this one so that they compute the same function.
 __device__ __forceinline__ float sigmoid(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
 
 // threads of a block for `cpg` channels a group: whole warps covering
@@ -935,10 +937,12 @@ cudaError_t launch_bwd(const void* x, const void* gamma, const void* beta, const
 }
 
 // The cluster route's Plan from the wrapper's numbers (groups a set, cluster
-// size, rows a block, row lanes), or false where they do not describe a plan
-// the kernels take; `smem` its dynamic shared memory.
+// size, rows a block, row lanes, dynamic shared memory), or false where they
+// do not describe a plan the kernels take: the block must have a thread for
+// each group of its set (the statistics are written one group a thread), and
+// `smem` must be this layout's `cluster_smem_bytes`.
 bool make_plan(int N, int rows, int C, int G, int es, int gpset, int K, int rows_b, int lanes,
-               bool bwd, Plan* p, size_t* smem) {
+               int smem, bool bwd, Plan* p) {
   if (gpset <= 0 || G % gpset != 0 || K < 1 || K > kClusterMax || rows_b < 1 || lanes < 1 ||
       (static_cast<long long>(C) * es) % 16 != 0)
     return false;
@@ -958,10 +962,11 @@ bool make_plan(int N, int rows, int C, int G, int es, int gpset, int K, int rows
   p->lanes = lanes;
   p->T = p->Wv * lanes;
   p->cnt = static_cast<float>(rows) * static_cast<float>(cpg);
-  if (p->T > kClusterThreads || static_cast<long long>(K) * p->n_gsets * N > 0x7fffffffLL)
+  if (p->T > kClusterThreads || gpset > (p->T + 31) / 32 * 32 ||
+      static_cast<long long>(K) * p->n_gsets * N > 0x7fffffffLL)
     return false;
-  *smem = cluster_smem_bytes(*p, bwd, es);
-  return *smem <= static_cast<size_t>(kSmemBlockMax);
+  return smem >= 0 && static_cast<size_t>(smem) == cluster_smem_bytes(*p, bwd, es) &&
+         smem <= kSmemBlockMax;
 }
 
 // a launch configuration of grid K x group-sets x N in clusters of K
@@ -1036,23 +1041,12 @@ cudaError_t bwd_cluster(const void* x, const void* gamma, const void* beta, cons
                                       p, smem, silu, p_dt, s_dt, st);
 }
 
-// clusters of the kernel the plan launches that the card holds at once
-template <typename Kern>
-int active_clusters(Kern kern, const Plan& p, size_t smem) {
-  if (prepare_cluster(kern, smem, p.K) != cudaSuccess) return -1;
-  ClusterLaunch l(p, 1, smem, nullptr);
-  l.cfg.numAttrs = 1;  // the query takes the cluster dimension, also of one block
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kern, &l.cfg) != cudaSuccess) return -1;
-  return n;
-}
-
 }  // namespace
 
 // C entries bound with ctypes.  Type codes: 0 = float32, 1 = bfloat16;
 // x_dt for x and y (dy and dx), p_dt for gamma and beta, s_dt for s and t
 // (null s and t: no modulation).  act: 0 = none, 1 = silu.  route: 0 =
-// rowwise, 1 = cluster with the plan (gpset, K, rows_b, lanes) of
+// rowwise, 1 = cluster with the plan (gpset, K, rows_b, lanes, smem) of
 // `ops/groupnorm.py:group_norm_plan`.  They return the cudaError_t of the
 // launches (0 on success; cudaErrorInvalidValue for arguments or a plan the
 // kernels do not take) and do not synchronise.
@@ -1060,7 +1054,7 @@ extern "C" int prt_group_norm_fwd(const void* x, const void* gamma, const void* 
                                   const void* s, const void* t, void* y, void* mu, void* rstd,
                                   int N, int rows, int C, int G, float eps, int act, int x_dt,
                                   int p_dt, int s_dt, int route, int gpset, int K, int rows_b,
-                                  int lanes, void* stream) {
+                                  int lanes, int smem, void* stream) {
   if (bad_shape(N, rows, C, G) || (s == nullptr) != (t == nullptr) || (act != 0 && act != 1) ||
       bad_type(x_dt) || bad_type(p_dt) || (s != nullptr && bad_type(s_dt)) ||
       (route != 0 && route != 1))
@@ -1070,9 +1064,8 @@ extern "C" int prt_group_norm_fwd(const void* x, const void* gamma, const void* 
   float* r = static_cast<float*>(rstd);
   if (route == 1) {
     Plan p;
-    size_t smem;
     const int es = x_dt == kF32 ? 4 : 2;
-    if (!make_plan(N, rows, C, G, es, gpset, K, rows_b, lanes, false, &p, &smem) ||
+    if (!make_plan(N, rows, C, G, es, gpset, K, rows_b, lanes, smem, false, &p) ||
         !aligned16(x) || !aligned16(y))
       return cudaErrorInvalidValue;
     if (x_dt == kF32)
@@ -1092,7 +1085,8 @@ extern "C" int prt_group_norm_bwd(const void* x, const void* gamma, const void* 
                                   const void* dy, void* dx, void* dgamma_part, void* dbeta_part,
                                   void* ds, void* dt, void* dgamma, void* dbeta, int N, int rows,
                                   int C, int G, int act, int x_dt, int p_dt, int s_dt, int route,
-                                  int gpset, int K, int rows_b, int lanes, void* stream) {
+                                  int gpset, int K, int rows_b, int lanes, int smem,
+                                  void* stream) {
   if (bad_shape(N, rows, C, G) || (s == nullptr) != (t == nullptr) || (act != 0 && act != 1) ||
       bad_type(x_dt) || bad_type(p_dt) || (s != nullptr && bad_type(s_dt)) ||
       (s != nullptr && (ds == nullptr || dt == nullptr)) || (route != 0 && route != 1))
@@ -1107,9 +1101,8 @@ extern "C" int prt_group_norm_bwd(const void* x, const void* gamma, const void* 
   cudaError_t err;
   if (route == 1) {
     Plan p;
-    size_t smem;
     const int es = x_dt == kF32 ? 4 : 2;
-    if (!make_plan(N, rows, C, G, es, gpset, K, rows_b, lanes, true, &p, &smem) ||
+    if (!make_plan(N, rows, C, G, es, gpset, K, rows_b, lanes, smem, true, &p) ||
         !aligned16(x) || !aligned16(dy) || !aligned16(dx))
       return cudaErrorInvalidValue;
     err = x_dt == kF32 ? bwd_cluster<float>(x, gamma, beta, s, t, m, r, dy, dx, gp, bp, fs, ft, N,
@@ -1124,28 +1117,6 @@ extern "C" int prt_group_norm_bwd(const void* x, const void* gamma, const void* 
   }
   if (err != cudaSuccess) return err;
   return launch_reduce(gp, bp, static_cast<float*>(dgamma), static_cast<float*>(dbeta), N, C, st);
-}
-
-// The clusters of a cluster-route launch the card holds at once
-// (cudaOccupancyMaxActiveClusters) for the plan at (rows, C, G), or -1 where
-// the plan is not one the kernels take or the query fails.  bwd: 0 forward, 1
-// backward (mod: with scale and shift).
-extern "C" int prt_group_norm_active_clusters(int bwd, int mod, int x_dt, int rows, int C, int G,
-                                              int gpset, int K, int rows_b, int lanes) {
-  Plan p;
-  size_t smem;
-  if (bad_shape(1, rows, C, G) || bad_type(x_dt) ||
-      !make_plan(1, rows, C, G, x_dt == kF32 ? 4 : 2, gpset, K, rows_b, lanes, bwd != 0, &p,
-                 &smem))
-    return -1;
-  if (!bwd)
-    return x_dt == kF32 ? active_clusters(&gn_fwd_cluster_kernel<float>, p, smem)
-                        : active_clusters(&gn_fwd_cluster_kernel<__nv_bfloat16>, p, smem);
-  if (x_dt == kF32)
-    return mod ? active_clusters(&gn_bwd_cluster_kernel<float, true>, p, smem)
-               : active_clusters(&gn_bwd_cluster_kernel<float, false>, p, smem);
-  return mod ? active_clusters(&gn_bwd_cluster_kernel<__nv_bfloat16, true>, p, smem)
-             : active_clusters(&gn_bwd_cluster_kernel<__nv_bfloat16, false>, p, smem);
 }
 
 extern "C" const char* prt_group_norm_error_string(int err) {

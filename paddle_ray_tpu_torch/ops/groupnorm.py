@@ -162,12 +162,36 @@ def _cluster_smem(rows_b: int, lanes: int, width: int, gpset: int,
                   itemsize: int, bwd: bool) -> int:
     """``csrc/groupnorm.cu:cluster_smem_bytes``: the resident tiles (x;
     and dy in the backward), the row lanes' per-channel sums, the
-    group-set's parameters, and the reduction and exchange buffers."""
+    group-set's parameters, and the reduction and exchange buffers.  The
+    C entries refuse a plan whose ``smem_bytes`` is not theirs."""
     gp4 = (gpset + 3) // 4 * 4
     tiles = (2 if bwd else 1) * rows_b * width * itemsize
     floats = (lanes * width + 4 * width + GN_THREADS
               + (4 * width + 2 * gp4 if bwd else 4 * gp4))
     return tiles + 4 * floats
+
+
+def _fewest_groups(groups: int, cpg: int, itemsize: int,
+                   align: int) -> Optional[int]:
+    """The fewest whole groups whose width is a multiple of ``align``
+    bytes and at most a block's threads of 16-byte vectors, or None."""
+    return next((d for d in range(1, groups + 1) if groups % d == 0
+                 and d * cpg * itemsize % align == 0
+                 and d * cpg * itemsize // 16 <= GN_THREADS), None)
+
+
+def _cluster_plan(rows: int, cpg: int, itemsize: int, bwd: bool,
+                  gpset: int, k: int) -> GroupNormPlan:
+    """The cluster route at ``gpset`` groups a set and (at most) ``k``
+    blocks a cluster: rows a block, no block without rows, as many row
+    lanes as a block's threads allow, and its shared memory."""
+    rows_b = -(-rows // k)
+    vectors = gpset * cpg * itemsize // 16
+    lanes = min(GN_THREADS // vectors, rows_b)
+    return GroupNormPlan(
+        "cluster", gpset, -(-rows // rows_b), rows_b, lanes,
+        (vectors * lanes + 31) // 32 * 32,
+        _cluster_smem(rows_b, lanes, gpset * cpg, gpset, itemsize, bwd))
 
 
 def group_norm_plan(n: int, rows: int, c: int, groups: int,
@@ -184,7 +208,9 @@ def group_norm_plan(n: int, rows: int, c: int, groups: int,
     vector of the group-set and ``256 // vectors`` row lanes.  A
     slice that one block holds within ``GN_SMEM_PAIR`` (two blocks an SM)
     takes one block a cluster, and its group-set doubles while that still
-    holds and the launch keeps ``GN_WAVE_BLOCKS`` blocks.  A larger slice
+    holds, the block keeps a thread a group (the kernels write the
+    statistics one group a thread) and the launch keeps
+    ``GN_WAVE_BLOCKS`` blocks.  A larger slice
     takes the smallest cluster whose blocks fit ``GN_SMEM_PAIR``; failing
     that, 16 blocks of up to ``GN_SMEM_BLOCK``.  The rowwise route takes C
     whose rows are not a multiple of 16 bytes, group-sets wider than 256
@@ -196,49 +222,35 @@ def group_norm_plan(n: int, rows: int, c: int, groups: int,
                              "multiple of 16 bytes")
     cpg = c // groups
 
-    def vectors(g: int) -> int:
-        return g * cpg * itemsize // 16
-
-    def smem(g: int, k: int) -> int:
-        rows_b = -(-rows // k)
-        lanes = min(GN_THREADS // vectors(g), rows_b)
-        return _cluster_smem(rows_b, lanes, g * cpg, g, itemsize, bwd)
-
-    def fewest(align: int) -> Optional[int]:
-        return next((d for d in range(1, groups + 1) if groups % d == 0
-                     and d * cpg * itemsize % align == 0
-                     and vectors(d) <= GN_THREADS), None)
+    def plan(g: int, k: int) -> GroupNormPlan:
+        return _cluster_plan(rows, cpg, itemsize, bwd, g, k)
 
     candidates = [g for g in dict.fromkeys(
-        ((fewest(32),) if not bwd else ()) + (fewest(16),)) if g is not None]
+        ((_fewest_groups(groups, cpg, itemsize, 32),) if not bwd else ())
+        + (_fewest_groups(groups, cpg, itemsize, 16),)) if g is not None]
     if not candidates:
         return GroupNormPlan("rowwise", reason="a group-set wider than a "
                              "block's threads")
-    gpset = k = None
     for g in candidates:
         k = next((k for k in range(1, GN_CLUSTER_MAX + 1)
-                  if smem(g, k) <= GN_SMEM_PAIR), None)
+                  if plan(g, k).smem_bytes <= GN_SMEM_PAIR), None)
         if k is not None:
-            gpset = g
             break
-    if gpset is None:
-        gpset, k = candidates[-1], GN_CLUSTER_MAX
-        if smem(gpset, k) > GN_SMEM_BLOCK:
+    else:
+        g, k = candidates[-1], GN_CLUSTER_MAX
+        if plan(g, k).smem_bytes > GN_SMEM_BLOCK:
             return GroupNormPlan("rowwise", reason="the slice is past a "
                                  "cluster's shared memory")
     if k == 1:
-        while (groups % (2 * gpset) == 0
-               and vectors(2 * gpset) <= GN_THREADS
-               and smem(2 * gpset, 1) <= GN_SMEM_PAIR
-               and n * groups // (2 * gpset) >= GN_WAVE_BLOCKS):
-            gpset *= 2
-    rows_b = -(-rows // k)
-    k = -(-rows // rows_b)                # no block without rows
-    lanes = min(GN_THREADS // vectors(gpset), rows_b)
-    return GroupNormPlan(
-        "cluster", gpset, k, rows_b, lanes,
-        (vectors(gpset) * lanes + 31) // 32 * 32,
-        _cluster_smem(rows_b, lanes, gpset * cpg, gpset, itemsize, bwd))
+        while groups % (2 * g) == 0 and n * groups // (2 * g) >= \
+                GN_WAVE_BLOCKS:
+            wider = plan(2 * g, 1)
+            if (2 * g * cpg * itemsize // 16 > GN_THREADS
+                    or 2 * g > wider.threads
+                    or wider.smem_bytes > GN_SMEM_PAIR):
+                break
+            g *= 2
+    return plan(g, k)
 
 
 # ---------------------------------------------------------------------------
@@ -299,10 +311,9 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.prt_group_norm_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.prt_group_norm_fwd.argtypes = ([p] * 8 + [i] * 4
-                                           + [ctypes.c_float] + [i] * 9 + [p])
-        lib.prt_group_norm_bwd.argtypes = [p] * 15 + [i] * 13 + [p]
-        lib.prt_group_norm_active_clusters.argtypes = [i] * 10
-        for fn in ("fwd", "bwd", "active_clusters"):
+                                           + [ctypes.c_float] + [i] * 10 + [p])
+        lib.prt_group_norm_bwd.argtypes = [p] * 15 + [i] * 14 + [p]
+        for fn in ("fwd", "bwd"):
             getattr(lib, f"prt_group_norm_{fn}").restype = ctypes.c_int
         lib.prt_group_norm_error_string.argtypes = [ctypes.c_int]
         lib.prt_group_norm_error_string.restype = ctypes.c_char_p
@@ -326,26 +337,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _plan_args(plan: GroupNormPlan, *tensors: torch.Tensor) -> tuple:
     """The plan as the C entries take it: ``(route, groups_per_set,
-    cluster, rows_per_block, lanes)``; the rowwise route where one of
-    ``tensors`` does not start on 16 bytes (a view into another tensor),
-    as the cluster route's 16-byte copies need."""
+    cluster, rows_per_block, lanes, smem_bytes)``; the rowwise route where
+    one of ``tensors`` does not start on 16 bytes (a view into another
+    tensor), as the cluster route's 16-byte copies need."""
     if plan.route == "cluster" and all(t.data_ptr() % 16 == 0
                                        for t in tensors):
         return (1, plan.groups_per_set, plan.cluster, plan.rows_per_block,
-                plan.lanes)
-    return (0, 0, 0, 0, 0)
-
-
-def active_clusters(plan: GroupNormPlan, rows: int, c: int, groups: int,
-                    dtype: torch.dtype, kind: str = "fwd",
-                    mod: bool = False) -> int:
-    """Clusters of a cluster-route plan's launch the current CUDA device
-    holds at once (``cudaOccupancyMaxActiveClusters``); -1 if the kernels
-    do not take the plan."""
-    return _kernel_lib().prt_group_norm_active_clusters(
-        int(kind == "bwd"), int(mod), _KERNEL_DTYPES[dtype], rows, c,
-        groups, plan.groups_per_set, plan.cluster, plan.rows_per_block,
-        plan.lanes)
+                plan.lanes, plan.smem_bytes)
+    return (0,) * 6
 
 
 def _device_kind(x: torch.Tensor) -> str:

@@ -235,6 +235,11 @@ PLAN_CASES = {
     "g2_cpg320_f32": (8, 1024, 640, 2, torch.float32, "cluster"),
     "g4_cpg10_4095x40": (4, 4095, 40, 4, torch.bfloat16, "cluster"),
     "cpg2_c64_g32": (2, 100, 64, 32, torch.bfloat16, "cluster"),
+    "n512_1x256_g64_cpg4": (512, 1, 256, 64, torch.bfloat16, "cluster"),
+    "n1024_4x512_g512_cpg1_f32": (1024, 4, 512, 512, torch.float32,
+                                  "cluster"),
+    "n4096_1x2048_g2048_cpg1": (4096, 1, 2048, 2048, torch.bfloat16,
+                                "cluster"),
     "unaligned_c36_g4": (2, 4096, 36, 4, torch.bfloat16, "rowwise"),
     "unaligned_c44_g4_odd": (2, 49, 44, 4, torch.bfloat16, "rowwise"),
     "past_cluster_65536x320": (2, 65536, 320, 32, torch.bfloat16,
@@ -262,8 +267,9 @@ def _plan_blocks(plan, n, rows, c, groups):
 @pytest.mark.parametrize("name", sorted(PLAN_CASES))
 def test_group_norm_plan(name, kind):
     """Every (n, row, channel) in exactly one block's tile and one thread's
-    16-byte vector; every group whole in one group-set; a block's shared
-    memory within the card's 232,448 bytes; every copy 16-byte aligned;
+    16-byte vector; every group whole in one group-set; a thread of the
+    block for each group of its set; a block's shared memory within the
+    card's 232,448 bytes; every copy 16-byte aligned;
     the unaligned C and the slices past a cluster's shared memory on the
     rowwise route."""
     n, rows, c, groups, dtype, route = PLAN_CASES[name]
@@ -288,6 +294,9 @@ def test_group_norm_plan(name, kind):
     vectors = width // vec
     assert vectors * plan.lanes <= plan.threads <= gn.GN_THREADS
     assert plan.threads % 32 == 0
+    # a thread a group: the kernels write each group's statistics from its
+    # own thread
+    assert plan.groups_per_set <= plan.threads
     # the blocks' tiles, sample by sample
     seen = np.zeros((rows, c), np.int32)
     sample, blocks = 0, 0

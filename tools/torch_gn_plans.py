@@ -13,8 +13,7 @@ it times, with ``chip_smoke.time_ms`` (median of 20, L2 flushed):
   (up to 16 blocks);
 * ``rowwise``: the rowwise route (one block per (sample, group)).
 
-Each line gives ``[groups a set, blocks a cluster, clusters the card holds
-at once, ms]``; the last line sums each policy over the step's 56 calls
+Each line gives ``[groups a set, blocks a cluster, ms]``; the last line sums each policy over the step's 56 calls
 (a policy without a plan at some case takes that case's plan).  Run from
 the repository root on a machine with a CUDA card::
 
@@ -34,7 +33,7 @@ sys.path.insert(0, ROOT)
 
 def _launch(gn, kind, x, w, b, s, t, dy, mu, rs, groups, act, plan_args):
     """One launch of the kernel of ``kind`` with the C entry's plan
-    arguments ``(route, groups a set, cluster, rows a block, lanes)``."""
+    arguments (``groupnorm._plan_args``)."""
     import torch
     n, rows, c = x.shape
     dts = (gn._KERNEL_DTYPES[x.dtype], gn._KERNEL_DTYPES[w.dtype],
@@ -63,29 +62,27 @@ def _launch(gn, kind, x, w, b, s, t, dy, mu, rs, groups, act, plan_args):
     return dx
 
 
-def _alternatives(gn, n, rows, c, groups, itemsize, bwd):
-    """{policy: (groups a set, cluster)} for the 16- and 32-byte group-sets
-    at the smallest cluster fitting two blocks an SM, and at twice it."""
+def _alternatives(gn, rows, c, groups, itemsize, bwd):
+    """{policy: plan} for the 16- and 32-byte group-sets at the smallest
+    cluster fitting two blocks an SM, and at twice it, built by
+    ``group_norm_plan``'s own helpers."""
     cpg = c // groups
     out = {}
     for align in (16, 32):
-        g = next((d for d in range(1, groups + 1) if groups % d == 0
-                  and d * cpg * itemsize % align == 0), None)
-        if g is None or g * cpg * itemsize // 16 > gn.GN_THREADS:
+        g = gn._fewest_groups(groups, cpg, itemsize, align)
+        if g is None:
             continue
-        lanes0 = gn.GN_THREADS // (g * cpg * itemsize // 16)
-
-        def smem(k):
-            rows_b = -(-rows // k)
-            return gn._cluster_smem(rows_b, min(lanes0, rows_b), g * cpg, g,
-                                    itemsize, bwd)
         k = next((k for k in range(1, gn.GN_CLUSTER_MAX + 1)
-                  if smem(k) <= gn.GN_SMEM_PAIR), None)
+                  if gn._cluster_plan(rows, cpg, itemsize, bwd, g,
+                                      k).smem_bytes <= gn.GN_SMEM_PAIR),
+                 None)
         if k is None:
             continue
-        out[f"w{align}_pair"] = (g, k)
+        out[f"w{align}_pair"] = gn._cluster_plan(rows, cpg, itemsize, bwd,
+                                                 g, k)
         if 1 < 2 * k <= gn.GN_CLUSTER_MAX:
-            out[f"w{align}_k2x"] = (g, 2 * k)
+            out[f"w{align}_k2x"] = gn._cluster_plan(rows, cpg, itemsize, bwd,
+                                                    g, 2 * k)
     return out
 
 
@@ -105,33 +102,24 @@ def main() -> None:
                                             act=act)
         count = calls.count((rows, c, mode))
         for kind in ("fwd", "bwd"):
-            plan = gn.group_norm_plan(n, rows, c, groups, bf16, kind)
-            policies = {"plan": (plan.groups_per_set, plan.cluster),
-                        **_alternatives(gn, n, rows, c, groups, 2,
+            policies = {"plan": gn.group_norm_plan(n, rows, c, groups, bf16,
+                                                   kind),
+                        **_alternatives(gn, rows, c, groups, 2,
                                         kind == "bwd")}
             row = {}
-            for name, (g, k) in policies.items():
-                width = g * (c // groups)
-                rows_b = -(-rows // k)
-                k = -(-rows // rows_b)
-                lanes = min(gn.GN_THREADS // (width // 8), rows_b)
-                alt = gn.GroupNormPlan("cluster", g, k, rows_b, lanes)
-                held = gn.active_clusters(alt, rows, c, groups, bf16, kind,
-                                          mod)
-                if held <= 0:
-                    continue
-                args = (1, g, k, rows_b, lanes)
+            for name, plan in policies.items():
+                args = gn._plan_args(plan, x, dy)
                 ms = cs.time_ms(lambda: _launch(gn, kind, x, w, b, s, t, dy,
                                                 mu, rs, groups, act, args))
-                row[name] = [g, k, held, ms]
-            row["rowwise"] = [0, 0, 0, cs.time_ms(lambda: _launch(
+                row[name] = [plan.groups_per_set, plan.cluster, ms]
+            row["rowwise"] = [0, 0, cs.time_ms(lambda: _launch(
                 gn, kind, x, w, b, s, t, dy, mu, rs, groups, act,
-                (0, 0, 0, 0, 0)))]
+                (0,) * 6))]
             for name in ("plan", "w16_pair", "w32_pair", "w16_k2x",
                          "w32_k2x", "rowwise"):
                 sums[f"{kind}_{name}"] += count * row.get(
-                    name, row["plan"])[3]
-            sums[f"{kind}_best"] += count * min(v[3] for v in row.values())
+                    name, row["plan"])[2]
+            sums[f"{kind}_best"] += count * min(v[2] for v in row.values())
             print(json.dumps({"case": f"{rows}x{c}_{mode}", "kind": kind,
                               "calls": count, **row}), flush=True)
         del x, dy, mu, rs
