@@ -22,7 +22,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    kernel (forward and backward, float32 and bf16, with and without the
    modulation) holds no ``LDGSTS`` (16-byte ``cp.async``) or no split
    cluster barrier (``UCGABAR_ARV`` / ``UCGABAR_WAIT``), or any GroupNorm
-   kernel touches local memory or spills; the decode-attention,
+   kernel touches local memory or spills, or a dropout kernel lacks the
+   funnel shifts of its rotates (``SHF.L.W``), its 16-byte-vector variant
+   16-byte loads and stores (``LDG.E.128`` / ``STG.E.128``), or any
+   dropout kernel touches local memory or spills; the decode-attention,
    dropout-add-LN and both int8 matmuls' kernels' registers and spills are
    reported beside them.
 3. kernel  -- the paged-attention kernel against its plain PyTorch
@@ -162,6 +165,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    / max|ref|`` 1e-4 / 2e-2.  The encoder's case and the new widths timed beside the bound,
    the plain version and ``torch.nn.functional.layer_norm`` on h alone
    (and its autograd backward).
+16b. dropout_kernel -- the threefry dropout kernel against its plain
+   version (``dropout_plain``, JAX's threefry mask as tensor operations)
+   bit for bit, forward, twice, and backward (the kernel on dy through
+   autograd): the recipe's ``[8, 1024, 1024]`` bf16 at p 0.1, float32, p
+   0.5, ``[3, 1000, 1001]`` (no whole number of 16-byte vectors) and a
+   float32 view 4 bytes into its buffer (element loads); each timed beside
+   its bound (``DROPOUT_INT_OPS`` int32 operations an element at
+   ``INT32_OPS_PER_S``, or the bytes), the plain version and
+   ``torch.nn.functional.dropout`` (the same work with PyTorch's Philox
+   bits).
 17. bert_train -- ``bench.py:bench_bert("bert-large", 512, 8, 10, {},
    zero_stage=0)``: BERT-large (bf16, flash), batch 8 of 512 random ids
    with ``mlm_labels = ids`` and NSP labels 0, ``AdamW(1e-4)`` through
@@ -222,6 +235,28 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    bf16, flash at head dim 96, remat off, batch 4 x 1024, ``AdamW(1e-4)``,
    2 warm-up and 3 timed steps; losses finite and falling, each flash
    kernel launched 24 times a step; tokens/s and MFU.
+25. train_recipe -- (after ``train_760m``) GPT pretraining with the GPT-3
+   paper's options (``RECIPE_CFG``): gpt3-350m at full width (bf16,
+   flash), batch 8 x 1024 in two micro-batches (``grad_accum=2``), dropout
+   0.1 under the key ``fold_in(PRNGKey(0), step)``, remat ``"dots"``,
+   ``ce_chunk`` 256, ``AdamW(LinearWarmup(CosineAnnealingDecay(3e-4,
+   10000, 3e-5), 2), beta2=0.95, weight_decay=0.1,
+   grad_clip=ClipGradByGlobalNorm(1.0))``: 2 warm-up and 10 timed steps,
+   losses finite and falling, the dropout kernel and the flash kernels
+   launched as ``recipe_launches`` says (244 drops, 96 flash forwards, 48
+   of each backward kernel a step); step ms, tokens/s, MFU by bench's
+   count, peak memory; one more step under
+   ``torch.cuda.set_sync_debug_mode("error")``, so any host-device sync in
+   the step fails the phase; one profiled step.
+26. train_seq8k -- ``bench.py``'s seq-8192 row (gpt3-350m, batch 1, remat
+   ``"dots_attn"``) with the recipe's other options: the same checks and
+   numbers (122 drops, 24 launches of each flash kernel a step).
+27. train_recipe_check -- a 4-layer float32 model of gpt3-350m's width
+   (flash, dropout 0.1, B 2, S 512) built from one set of weights: remat
+   off, ``"none"``, ``"dots"`` and ``"dots_attn"`` losses and gradients
+   within 1e-6, each policy's peak memory against remat off's;
+   ``ce_chunk`` 256 against the full cross-entropy; without dropout,
+   ``grad_accum`` 2 against one batch of the same four rows.
 
 Then the card's name and power limit (as ``nvidia-smi`` prints them), the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -297,6 +332,27 @@ PTQ_TIMED, QAT_LAYERS, QAT_STEPS = 5, 4, 5
 # ptq_check: max|err| / max|ref| of the int8 stack on the card against its
 # CPU copy, at the level of the int8 error itself (see phase_ptq_check)
 PTQ_CHECK_TOL = 0.05
+# GPT pretraining with the options of the GPT-3 paper (Brown et al. 2020,
+# app. B): dropout 0.1, AdamW beta2 0.95, decoupled decay 0.1 (the JAX
+# package's mask: tensors of rank 2 and up), global-norm clip 1.0, linear
+# warm-up into a cosine decay to 10 % of gpt3-350m's peak lr 3e-4 -- the
+# schedule's lengths cut to the run's 12 steps -- with remat "dots",
+# chunked cross-entropy and two micro-batches a step
+RECIPE_CFG = dict(dropout=0.1, remat=True, remat_policy="dots",
+                  ce_chunk=256)
+RECIPE_ACCUM = 2
+RECIPE_LR, RECIPE_LR_MIN, RECIPE_WARMUP, RECIPE_DECAY = 3e-4, 3e-5, 2, 10000
+# bench.py's seq-8192 row (gpt3-350m, batch 1, remat "dots_attn") with the
+# recipe's other options
+SEQ8K, SEQ8K_BATCH, SEQ8K_POLICY = 8192, 1, "dots_attn"
+DROPOUT_KERNELS = ("threefry_dropout",)
+# int32 operations of the dropout kernel an element: the threefry2x32 hash
+# (2 key adds, 20 rounds of add, rotate and xor, 5 injections of 2 adds),
+# the xor of its two words, the shift and the or of the float32 uniform
+DROPOUT_INT_OPS = 2 + 20 * 3 + 5 * 2 + 1 + 2
+# the H100 SXM's int32 rate: 64 INT32 lanes an SM (NVIDIA's Hopper
+# architecture white paper) x 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 _START = time.perf_counter()
@@ -553,6 +609,35 @@ def _gn_short(mangled):
     return f"{base}<{t}{'' if mod is None else ',mod' if mod == '1' else ''}>"
 
 
+# dropout_kernel<T, VEC>: what it must hold -- the rotates as funnel shifts,
+# and with VEC 16-byte loads and stores -- and what it may not: local memory
+_DROPOUT_NAME = re.compile(r"dropout_kernelI(f|13__nv_bfloat16)Lb([01])E")
+DROPOUT_SASS_OPCODES = ("SHF.L.W", "LDG.E.128", "STG.E.128", "LDL", "STL")
+
+
+def _dropout_short(mangled):
+    m = _DROPOUT_NAME.search(mangled)
+    if m is None:
+        return None
+    t, vec = m.groups()
+    return (f"dropout_kernel<{'float' if t == 'f' else 'bf16'},"
+            f"{'vec' if vec == '1' else 'element'}>")
+
+
+def _dropout_sass_check(kernels: dict) -> None:
+    """The four dropout kernels each rotate by funnel shifts (at least the
+    hash's 20 a counter), touch no local memory and spill nothing; the
+    16-byte-vector ones load and store 16 bytes at a time."""
+    bad = [n for n, k in kernels.items()
+           if k.get("SHF.L.W", 0) < 20 or k.get("LDL") or k.get("STL")
+           or k.get("spill_store_bytes") or k.get("spill_load_bytes")
+           or ("vec" in n and not (k.get("LDG.E.128")
+                                   and k.get("STG.E.128")))]
+    if len(kernels) != 4 or bad:
+        raise AssertionError(f"dropout SASS: kernels {sorted(kernels)}; "
+                             f"failing {bad}: {kernels}")
+
+
 def _int8_short(mangled):
     m = _INT8_NAME.search(mangled)
     if m:
@@ -631,7 +716,8 @@ def _sass_check(logs: dict) -> None:
     prefill tiles' ``mma.sync``), if an ``int8_matmul`` kernel (TMA or
     masked path, float32 or bf16 output) holds no ``IGMMA``, if an
     ``int8_stream_matmul`` kernel for bf16 x holds no ``HMMA``, or if the
-    GroupNorm kernels fail ``_gn_sass_check``."""
+    GroupNorm kernels fail ``_gn_sass_check`` or the dropout kernels
+    ``_dropout_sass_check``."""
     kernels = _sass_counts("flash_attention", logs["flash_attention"],
                            _flash_short, "sass_flash_mma.txt")
     paged = _sass_counts("paged_attention", logs["paged_attention"],
@@ -646,6 +732,10 @@ def _sass_check(logs: dict) -> None:
                       "sass_groupnorm.txt", GN_SASS_OPCODES)
     if gn is not None:
         _gn_sass_check(gn)
+    drop = _sass_counts("dropout", logs["dropout"], _dropout_short,
+                        "sass_dropout.txt", DROPOUT_SASS_OPCODES)
+    if drop is not None:
+        _dropout_sass_check(drop)
     if kernels is None or paged is None or None in int8.values():
         return
     tc = [n for n in kernels if "_tc_kernel" in n]
@@ -1917,6 +2007,88 @@ def phase_dal_kernel() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 16b. the dropout kernel against its plain version
+# ---------------------------------------------------------------------------
+def _dropout_bound(n, dtype) -> dict:
+    """The least time: x read and y written once over the HBM rate,
+    against ``DROPOUT_INT_OPS`` int32 operations an element over the
+    card's int32 rate; the larger of the two."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    n_bytes, ops = 2 * n * es, DROPOUT_INT_OPS * n
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "ops": ops}
+
+
+# (name, shape, dtype, p, offset in elements of x into its buffer, timed):
+# the recipe's dropout shape [8, 1024, 1024] (batch 8 of seq 1024 at width
+# 1024) in bf16 at p 0.1 first, float32, p 0.5, a size no whole number of
+# 16-byte vectors, and a view 4 bytes into its buffer (element loads)
+DROPOUT_CASES = (
+    ("recipe_bf16_p0.1", (8, 1024, 1024), "bfloat16", 0.1, 0, True),
+    ("f32_p0.1", (8, 1024, 1024), "float32", 0.1, 0, True),
+    ("bf16_p0.5", (8, 1024, 1024), "bfloat16", 0.5, 0, True),
+    ("odd_bf16_p0.1", (3, 1000, 1001), "bfloat16", 0.1, 0, True),
+    ("odd_view_f32_p0.1", (3, 1000, 1001), "float32", 0.1, 1, True),
+)
+
+
+def _dropout_case(name, shape, dtype, p, offset, timed) -> dict:
+    """The kernel against ``dropout_plain`` bit for bit: forward, the same
+    bits in two calls, and the autograd backward (the kernel on dy)
+    against the plain version of dy; with ``timed``, the kernel beside its
+    bound, the plain version and ``torch.nn.functional.dropout`` (the same
+    work with other random bits: PyTorch's Philox)."""
+    import torch.nn.functional as F
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.ops.dropout import (dropout, dropout_plain,
+                                                  threefry_dropout)
+    n = int(np.prod(shape))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + n)
+    buf = torch.randn(n + offset, generator=g, device="cuda").to(dtype)
+    x = buf[offset:].view(shape)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    key = prng.fold_in(prng.PRNGKey(SEED), n)
+    y = threefry_dropout(x, key, p)
+    again = threefry_dropout(x, key, p)
+    leaf = x.detach().requires_grad_()
+    y_ad = dropout(leaf, key, p)
+    y_ad.backward(dy)
+    torch.cuda.synchronize()
+    ref, ref_dx = dropout_plain(x, key, p), dropout_plain(dy, key, p)
+    same = {"fwd": bool(torch.equal(y, ref)),
+            "twice": bool(torch.equal(y, again)),
+            "autograd_fwd": bool(torch.equal(y_ad, ref)),
+            "bwd": bool(torch.equal(leaf.grad, ref_dx))}
+    err = max(float((y.float() - ref.float()).abs().max()),
+              float((leaf.grad.float() - ref_dx.float()).abs().max()))
+    if not all(same.values()):
+        raise AssertionError(f"dropout {name}: kernel vs plain, bit for "
+                             f"bit: {same}, max_abs_err {err}")
+    out = {"max_abs_err": err, "keep_share": float((ref != 0).float().mean()),
+           **_dropout_bound(n, dtype)}
+    if timed:
+        out.update(ms=time_ms(lambda: threefry_dropout(x, key, p)),
+                   plain_ms=time_ms(lambda: dropout_plain(x, key, p),
+                                    iters=5),
+                   library_ms=time_ms(lambda: F.dropout(x, p)))
+    emit("dropout_kernel", case=name, shape=list(shape), dtype=str(dtype),
+         p=p, offset=offset, bit_identical=same,
+         library="torch.nn.functional.dropout: the same work with other "
+                 "random bits (Philox)", **out)
+    return out
+
+
+def phase_dropout_kernel() -> dict:
+    """Every case of ``DROPOUT_CASES``; the first is the recipe's."""
+    return {name: _dropout_case(name, shape, getattr(torch, dtype), p, off,
+                                timed)
+            for name, shape, dtype, p, off, timed in DROPOUT_CASES}
+
+
+# ---------------------------------------------------------------------------
 # 6. the serving path: gpt3-350m
 # ---------------------------------------------------------------------------
 def bench_serving_workload(span: int):
@@ -2287,7 +2459,9 @@ def phase_generate(model) -> dict:
 # one stream's prompts: bench.py's 128, and a long context whose decode
 # positions (1536-1790) fused decode attention splits
 GEN_B1_PROMPTS = (GEN_PROMPT, 1536)
-GEN_B1_PROFILED = 64   # new tokens of each profiled batch-1 call
+# new tokens of each profiled batch-1 call (64 before the recipe's phases
+# joined the run; 16 keeps the run near 10 min)
+GEN_B1_PROFILED = 16
 
 
 def phase_generate_b1(model) -> dict:
@@ -2606,6 +2780,203 @@ def phase_train_760m() -> dict:
     del ts, model, batch
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# 25-27. GPT pretraining options: the recipe, seq 8192, and their check
+# ---------------------------------------------------------------------------
+def _recipe_optimizer():
+    from paddle_ray_tpu_torch.optimizer import (AdamW, ClipGradByGlobalNorm,
+                                                CosineAnnealingDecay,
+                                                LinearWarmup)
+    return AdamW(LinearWarmup(CosineAnnealingDecay(
+        RECIPE_LR, RECIPE_DECAY, RECIPE_LR_MIN), RECIPE_WARMUP),
+        beta2=0.95, weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _recipe_counters():
+    from paddle_ray_tpu_torch.ops.dropout import threefry_dropout
+    return {**_flash_counters(), DROPOUT_KERNELS[0]: threefry_dropout}
+
+
+def recipe_launches(layers, policy, micro) -> dict:
+    """Launches a step of ``micro`` micro-batches of ``layers`` blocks: a
+    micro-batch drops 1 + 2 L times forward and backward (the embedding,
+    each block's attention and MLP outputs) and L more in the recompute
+    (each block's attention-output drop, which the second norm's input
+    needs; the recompute stops before the MLP's); the flash forward runs
+    again in the recompute unless the policy saves its outputs
+    (``"dots_attn"``).  ``tests/test_torch_train_options.py`` holds the
+    pattern on the CPU."""
+    fwd = layers * (1 if policy == "dots_attn" else 2)
+    return {DROPOUT_KERNELS[0]: micro * (2 * (1 + 2 * layers) + layers),
+            FLASH_KERNELS[0]: micro * fwd, FLASH_KERNELS[1]: micro * layers,
+            FLASH_KERNELS[2]: micro * layers}
+
+
+def _train_recipe(label, seq, batch, policy, accum) -> dict:
+    """gpt3-350m at full width (bf16, flash) through ``build_train_step``
+    with the recipe's options and ``remat_policy=policy``, ``grad_accum=
+    accum``, step i's key ``fold_in(PRNGKey(SEED), i)``: 2 warm-up and 10
+    timed steps, losses finite and falling, every kernel launched as
+    :func:`recipe_launches` says; one step in which a host-device sync
+    raises; then one profiled step."""
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
+                      attn_impl="flash", max_seq_len=seq, generator=g,
+                      **{**RECIPE_CFG, "remat_policy": policy})
+    cfg = model.cfg
+    ts = build_train_step(model, _recipe_optimizer(), gpt_loss_fn,
+                          grad_accum=accum)
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (batch, seq))).to("cuda")
+    key = prng.PRNGKey(SEED)
+
+    def step(i):
+        return ts.step((ids, ids), prng.fold_in(key, i))
+    run = _timed_train(ts, step, _recipe_counters(),
+                       recipe_launches(cfg.num_layers, policy, accum), label)
+    # one more step with every host-device sync an error: the step never
+    # waits for the device
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(WARMUP_STEPS + TIMED_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = batch * seq * TIMED_STEPS / run["seconds"]
+    # bench.py's count: 6 N + 12 L H S FLOP per token (no recompute),
+    # against the bf16 peak
+    flops_per_token = (6 * n_params
+                       + 12 * cfg.num_layers * cfg.hidden_size * seq)
+    step_ms = 1e3 * run["seconds"] / TIMED_STEPS
+    out = {"tokens_per_s": tokens_per_s, "step_ms": step_ms,
+           "mfu": tokens_per_s * flops_per_token
+           / PEAK_OPS_PER_S[torch.bfloat16],
+           "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
+           "peak_memory_gb": run["peak_memory_gb"],
+           "launches": run["launches"]}
+    emit(label, model=MODEL, dtype="bfloat16", attn_impl="flash",
+         batch=batch, seq=seq, grad_accum=accum, remat_policy=policy,
+         dropout=cfg.dropout, ce_chunk=cfg.ce_chunk,
+         optimizer=f"AdamW(LinearWarmup(CosineAnnealingDecay({RECIPE_LR}, "
+                   f"{RECIPE_DECAY}, {RECIPE_LR_MIN}), {RECIPE_WARMUP}), "
+                   f"beta2=0.95, weight_decay=0.1, "
+                   f"grad_clip=ClipGradByGlobalNorm(1.0))",
+         steps=run["steps"], timed_steps=TIMED_STEPS, n_params=n_params,
+         flops_per_token=flops_per_token, losses=run["losses"],
+         sync_free_step=True, **out)
+    _profile_step(lambda: step(WARMUP_STEPS + TIMED_STEPS + 1),
+                  f"{label}_profile",
+                  step_ms, {"dropout": ("dropout_kernel",),
+                            "flash": ("flash_",)})
+    del ts, model, ids
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_recipe() -> dict:
+    """The slice's main path: batch 8 x 1024 in two micro-batches, remat
+    ``"dots"``."""
+    return _train_recipe("train_recipe", TRAIN_SEQ, TRAIN_BATCH,
+                         RECIPE_CFG["remat_policy"], RECIPE_ACCUM)
+
+
+def phase_train_seq8k() -> dict:
+    """``bench.py``'s seq-8192 row: batch 1, remat ``"dots_attn"``."""
+    return _train_recipe("train_seq8k", SEQ8K, SEQ8K_BATCH, SEQ8K_POLICY, 1)
+
+
+def phase_train_recipe_check() -> None:
+    """A 4-layer float32 model of gpt3-350m's width (flash, dropout 0.1,
+    one key) built several times from one set of weights: remat off,
+    ``"none"``, ``"dots"`` and ``"dots_attn"`` give losses and gradients
+    within 1e-6 of max|ref| (the recompute runs the same kernels on the
+    same inputs), each policy's peak memory beside remat off's;
+    ``ce_chunk`` 256 against the full cross-entropy (loss ``rtol`` 1e-5,
+    gradients ``max|err| / max|ref|`` 1e-4: chunked sums in another
+    order); without dropout, ``grad_accum`` 2 against one batch of the
+    same four rows (loss ``rtol`` 1e-5, gradients 1e-5: float32
+    rounding)."""
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    b, s = 2, 512
+    key = prng.PRNGKey(SEED + 2)
+
+    def build(**kw):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 2)
+        return build_gpt(MODEL, device="cuda", dtype=torch.float32,
+                         num_layers=4, max_seq_len=s, attn_impl="flash",
+                         generator=g, **{"dropout": 0.1, **kw})
+    ids = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
+        0, 50304, (2 * b, s))).to("cuda")
+    batch = (ids[:b], ids[:b])
+
+    def grads(m, batch, key):
+        m.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = gpt_loss_fn(m, batch, key)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        return float(loss), {n: p.grad.clone()
+                             for n, p in m.named_parameters()}, peak
+    runs = {}
+    for policy in ("off", "none", "dots", "dots_attn"):
+        kw = (dict(remat=False) if policy == "off"
+              else dict(remat=True, remat_policy=policy))
+        m = build(**kw)
+        runs[policy] = grads(m, batch, key)
+        del m
+    loss0, g0, _ = runs["off"]
+    remat = {}
+    for policy in ("none", "dots", "dots_attn"):
+        loss, g, peak = runs[policy]
+        err = max(_rel_err(g[n], g0[n]) for n in g0)
+        remat[policy] = {"loss": loss, "max_grad_rel_err": err,
+                         "peak_memory_gb": peak}
+        if err > 1e-6 or abs(loss - loss0) > 1e-6 * abs(loss0):
+            raise AssertionError(f"train_recipe_check: remat {policy} "
+                                 f"against off: loss {loss} vs {loss0}, "
+                                 f"grad rel_err {err}")
+    full, chunked = build(), build(ce_chunk=256)
+    lf, gf, _ = grads(full, batch, key)
+    lc, gc, _ = grads(chunked, batch, key)
+    ce_err = max(_rel_err(gc[n], gf[n]) for n in gf)
+    if ce_err > 1e-4 or abs(lc - lf) > 1e-5 * abs(lf):
+        raise AssertionError(f"train_recipe_check: ce_chunk loss {lc} vs "
+                             f"{lf}, grad rel_err {ce_err}")
+    del full, chunked
+    acc = {}
+    for n_acc in (2, 1):
+        m = build(dropout=0.0)
+        ts = build_train_step(m, AdamW(0.0), gpt_loss_fn, grad_accum=n_acc)
+        loss = float(ts.step((ids, ids)))
+        acc[n_acc] = (loss, {n: p.grad.clone()
+                             for n, p in m.named_parameters()})
+        del ts, m
+    acc_err = max(_rel_err(acc[2][1][n], acc[1][1][n]) for n in acc[1][1])
+    if acc_err > 1e-5 or abs(acc[2][0] - acc[1][0]) > 1e-5 * abs(acc[1][0]):
+        raise AssertionError(f"train_recipe_check: grad_accum 2 loss "
+                             f"{acc[2][0]} vs {acc[1][0]}, grad rel_err "
+                             f"{acc_err}")
+    emit("train_recipe_check", dtype="float32", layers=4, batch=b, seq=s,
+         loss_off=loss0, peak_memory_gb_off=runs["off"][2], remat=remat,
+         remat_tol=1e-6, ce_chunk={"loss": lc, "loss_full": lf,
+                                   "max_grad_rel_err": ce_err, "tol": 1e-4},
+         grad_accum={"loss_2": acc[2][0], "loss_1": acc[1][0],
+                     "max_grad_rel_err": acc_err, "tol": 1e-5})
+    del runs, acc
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3489,6 +3860,7 @@ def main() -> None:
     phase_int8_one_call("early")
     gn = phase_gn_kernel()
     dal = phase_dal_kernel()
+    drop = phase_dropout_kernel()
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED)
     model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
@@ -3511,6 +3883,9 @@ def main() -> None:
     train = phase_train()
     phase_train_check()
     train_760m = phase_train_760m()
+    recipe = phase_train_recipe()
+    seq8k = phase_train_seq8k()
+    phase_train_recipe_check()
     unet = phase_unet_train()
     phase_unet_check()
     bert = phase_bert_train()
@@ -3523,12 +3898,13 @@ def main() -> None:
     phase_int8_one_call("late")
     train_case = flash["train_bf16"]
     runs = {"gpt": train, "gpt760m": train_760m, "bert": bert,
-            "encoder": enc}
+            "encoder": enc, "recipe": recipe, "seq8k": seq8k}
     flash_entries = [_entry(
         name, "flash_attention.cu", f"flash_attention.py:{line}", body,
         sum(r["launches"][name] for r in runs.values()), train_case[kind],
         "bf16 causal, B 8, S 1024, H 16, D 64 (launches: gpt3-350m, "
-        "gpt3-760m, BERT-large and the fused encoder training runs, "
+        "gpt3-760m, BERT-large, the fused encoder, the pretraining recipe "
+        "and seq-8192 training runs, "
         + ", ".join(f"{r['launches'][name]}" for r in runs.values())
         + "); non-causal B 8, S 512 with segment ids {:.4f} ms, a [B,1,1,S] "
         "mask-bias {:.4f} ms, a full bias{} {:.4f} ms".format(
@@ -3668,6 +4044,28 @@ def main() -> None:
         f"s8 on 128 x 256 tiles fed by TMA through a 4-stage mbarrier ring, "
         f"two consumer warpgroups, the epilogue staged through shared "
         f"memory; library_ms is torch._int_mm then the two scale products"))
+    drop_case = drop[DROPOUT_CASES[0][0]]
+    entries.append({
+        "name": DROPOUT_KERNELS[0], "route": "cuda",
+        "source": "paddle_ray_tpu_torch/ops/csrc/dropout.cu",
+        "replaces": "paddle_ray_tpu/nn/functional.py:123",
+        "tpu_kernel": None,
+        "launches": sum(r["launches"][DROPOUT_KERNELS[0]]
+                        for r in (recipe, seq8k)),
+        "max_abs_err": max(r["max_abs_err"] for r in drop.values()),
+        **{k: drop_case[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+        "shape": (
+            f"bf16 [8, 1024, 1024], p 0.1 (the recipe's drops); replaces no "
+            f"pl.pallas_call: the JAX dropout is jnp that XLA fuses into one "
+            f"pass, and the plain version is about 170 launches; bit for bit "
+            f"the plain version in every case, forward and backward (the "
+            f"same kernel on dy); bound by {DROPOUT_INT_OPS} int32 operations "
+            f"an element at {INT32_OPS_PER_S / 1e12:.1f} T/s; launches: "
+            f"train_recipe {recipe['launches'][DROPOUT_KERNELS[0]]}, "
+            f"train_seq8k {seq8k['launches'][DROPOUT_KERNELS[0]]}; "
+            f"library_ms is torch.nn.functional.dropout, the same work with "
+            f"other random bits (Philox)")})
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ encoder layers with fused dropout-add-LayerNorm kernels
 ids.  Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``, where every kernel's plain PyTorch version runs instead.
 """
+from .core.rng import seed
 from .device import default_device, resolve_device
 
-__all__ = ["default_device", "resolve_device"]
+__all__ = ["default_device", "resolve_device", "seed"]

@@ -28,12 +28,13 @@ the whole hash.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "as_key", "threefry2x32", "fold_in", "split",
+__all__ = ["PRNGKey", "as_key", "key_words", "threefry2x32", "fold_in",
+           "split",
            "random_bits", "uniform", "bernoulli", "randint", "gumbel",
            "categorical"]
 
@@ -55,6 +56,16 @@ def as_key(key, device=None) -> torch.Tensor:
     if key.shape[-1:] != (2,):
         raise ValueError(f"a key is [..., 2] words, got {tuple(key.shape)}")
     return key & _MASK
+
+
+def key_words(key) -> Tuple[int, int]:
+    """One key's two uint32 words as Python integers: from a pair of ints,
+    or through :func:`as_key` (a key on the device is fetched: keep keys
+    on the host on the hot path)."""
+    if isinstance(key, tuple) and len(key) == 2:
+        return int(key[0]) & _MASK, int(key[1]) & _MASK
+    k1, k2 = as_key(key).tolist()
+    return int(k1), int(k2)
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802

@@ -13,8 +13,8 @@ layer surface over the port's fused kernels.
 Parameters keep the JAX names (``qkv``, ``out_proj``, ``pre_ln``,
 ``ln_scale``, ``ln_bias``, ``linear1``, ``linear2``, ``bias``), so a JAX
 state dict loads key for key.  Keys are :mod:`..core.prng` keys split as
-the JAX layers split them; without a key, dropout in training raises (the
-JAX global key tracker is not ported).  Layers are built on ``device``
+the JAX layers split them; without a key, dropout in training draws from
+the global key tracker (:func:`..core.rng.next_key`), as in JAX.  Layers are built on ``device``
 (CUDA unless the caller names the CPU), linear weights drawn from
 ``generator``.
 """

@@ -5,15 +5,32 @@ Same configuration table, same module tree and parameter names (so a JAX
 state dict maps over key for key, see :mod:`..weights`), same arithmetic:
 pre-LN blocks, fused QKV laid out ``[heads, (q|k|v), dim]``, tanh GELU,
 float32 LayerNorm, tied LM head, and the causal-LM loss.  Attention is
-dense or flash (the CUDA kernels of :mod:`..ops.flash_attention`); remat
-wraps each block in ``torch.utils.checkpoint``.  Dropout, the MoE FFN,
-chunked cross-entropy, the ``"dots"`` remat policies and the multi-device
-attention schemes raise :class:`NotImplementedError`.
+dense or flash (the CUDA kernels of :mod:`..ops.flash_attention`).
+
+Dropout follows JAX's key path bit for bit: ``rng`` is split into the
+embedding's key and the blocks' key, that into one key a block, and each
+block's into the attention output's and the MLP output's
+(:func:`..core.prng.split`); without ``rng`` nothing is dropped, as in
+JAX.  On CUDA each drop is the dropout kernel (:mod:`..ops.dropout`).
+
+Remat wraps each block in ``torch.utils.checkpoint``: policy ``"none"``
+recomputes the whole block in the backward; ``"dots"`` and ``"dots_attn"``
+are JAX's ``dots_with_no_batch_dims_saveable`` and its union with the
+names ``attn_out``, ``flash_out`` and ``flash_lse``, as selective
+checkpoint policies (:func:`remat_policy`).  Draws from the key tracker
+inside a block are replayed in the recompute
+(:func:`..core.rng.checkpoint_contexts`).  ``ce_chunk > 0`` computes the
+head and the loss a chunk of positions at a time, each chunk
+checkpointed, so the ``[B, S, V]`` logits never exist whole.  The MoE FFN
+and the multi-device attention schemes raise
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Optional
 
 import torch
@@ -21,9 +38,11 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..core import dtypes as _dt
+from ..core import prng
+from ..core import rng as _rng
 from ..device import resolve_device
 from ..nn import functional as F
-from ..nn.layers import LayerNorm
+from ..nn.layers import Dropout, LayerNorm
 from ..ops.flash_attention import flash_attention
 from ..parallel.tp import (ColumnParallelLinear, ParallelCrossEntropy,
                            RowParallelLinear, VocabParallelEmbedding,
@@ -32,7 +51,8 @@ from ..parallel.tp import (ColumnParallelLinear, ParallelCrossEntropy,
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPT", "GPTEmbedding",
            "GPTAttention", "GPTMLP", "GPTBlock", "GPTHead", "build_gpt",
            "gpt_loss_fn", "rotary_sincos", "apply_rotary",
-           "sequence_parallel_attention"]
+           "sequence_parallel_attention", "checkpoint_name",
+           "remat_policy"]
 
 # attention schemes of the JAX package that need several devices
 _MULTI_DEVICE_ATTN = ("ring", "ring_flash", "ulysses")
@@ -53,7 +73,7 @@ class GPTConfig:
     attn_impl: str = "dense"          # dense | flash (ring | ring_flash | ulysses: not ported)
     tie_embeddings: bool = True
     remat: bool = True                # torch.utils.checkpoint each block
-    remat_policy: str = "none"        # "none"; "dots" | "dots_attn": not ported
+    remat_policy: str = "none"        # "none" | "dots" | "dots_attn"
     # accepted for config parity; the blocks always run as a plain loop
     # (the JAX package's lax.scan does the same arithmetic)
     scan_layers: bool = True
@@ -66,7 +86,7 @@ class GPTConfig:
     moe_capacity_factor: float = 1.25
     moe_gate: str = "gshard"
     moe_aux_weight: float = 1e-2
-    ce_chunk: int = 0                 # chunked cross-entropy: not ported yet
+    ce_chunk: int = 0                 # > 0: head + CE in chunks of positions
 
     @property
     def head_dim(self) -> int:
@@ -147,6 +167,96 @@ def sequence_parallel_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Remat policies
+# ---------------------------------------------------------------------------
+_NAMES = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """The counterpart of ``jax.ad_checkpoint.checkpoint_name``: the
+    outputs of the operators run inside are named ``name`` for the remat
+    policies."""
+    prev = getattr(_NAMES, "name", None)
+    _NAMES.name = name
+    try:
+        yield
+    finally:
+        _NAMES.name = prev
+
+
+_aten = torch.ops.aten
+# matrix products without batch dims (a linear layer's x @ W folds to mm)
+_DOTS = (_aten.mm.default, _aten.addmm.default)
+# the flash forward: both its outputs, "flash_out" and "flash_lse"
+_FLASH = torch.ops.prt.flash_attention_fwd.default
+_DOTS_ATTN_NAMES = ("attn_out",)
+
+
+def _policy_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _policy_dots_attn(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if (op in _DOTS or op == _FLASH
+            or getattr(_NAMES, "name", None) in _DOTS_ATTN_NAMES):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_POLICIES = {"none": None, "dots": _policy_dots,
+             "dots_attn": _policy_dots_attn}
+
+
+def remat_policy(name: str):
+    """The selective-checkpoint policy of a ``remat_policy`` name (None
+    for ``"none"``: everything recomputed).  ``"dots"`` saves the outputs
+    of ``aten.mm`` / ``aten.addmm`` (JAX's
+    ``dots_with_no_batch_dims_saveable``: the four projections, not the
+    batched products of dense attention; the flash forward is
+    recomputed, as a ``pallas_call`` is no dot in JAX); ``"dots_attn"``
+    also the flash operator's ``o`` and ``lse`` and what runs under
+    ``checkpoint_name("attn_out")``."""
+    if name not in _POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r}")
+    return _POLICIES[name]
+
+
+@contextlib.contextmanager
+def _entered(*cms):
+    with contextlib.ExitStack() as stack:
+        for cm in cms:
+            stack.enter_context(cm)
+        yield
+
+
+def _remat_contexts(policy):
+    """``context_fn`` of the block checkpoint: the key tracker's replay
+    and, with a policy, the selective-checkpoint contexts."""
+    fwd, rec = _rng.checkpoint_contexts()
+    if policy is None:
+        return fwd, rec
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    sac_fwd, sac_rec = create_selective_checkpoint_contexts(policy)
+    return _entered(fwd, sac_fwd), _entered(rec, sac_rec)
+
+
+def remat(fn, policy_name: str = "none"):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) with the
+    named policy; key-tracker draws inside are replayed in the
+    recompute.  torch's own RNG state is not stashed: the port draws no
+    random number from it."""
+    policy = remat_policy(policy_name)
+    return lambda *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: _remat_contexts(policy))
+
+
+# ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
 class GPTEmbedding(nn.Module):
@@ -164,12 +274,15 @@ class GPTEmbedding(nn.Module):
             self.position_embeddings = normal_parameter(
                 (cfg.max_seq_len, cfg.hidden_size), cfg.init_std,
                 device=device, dtype=dtype, generator=generator)
+        self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, rng=None) -> torch.Tensor:
         h = self.word_embeddings(ids)
         if self.position_embeddings is not None:
             s = ids.shape[-1]
             h = h + self.position_embeddings[:s].to(h.dtype)
+        if self.cfg.dropout > 0.0 and rng is not None:
+            h = self.dropout(h, rng=rng)
         return h
 
 
@@ -187,7 +300,7 @@ class GPTAttention(nn.Module):
             h, h, std=cfg.init_std / math.sqrt(2 * cfg.num_layers),
             device=device, dtype=dtype, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         qkv = self.qkv(x).reshape(b, s, cfg.num_heads, 3, cfg.head_dim)
@@ -198,7 +311,10 @@ class GPTAttention(nn.Module):
             q, k = apply_rotary(q, sin, cos), apply_rotary(k, sin, cos)
         o = sequence_parallel_attention(q, k, v, impl=cfg.attn_impl,
                                         causal=True)
-        return self.out(o.reshape(b, s, cfg.hidden_size))
+        # named for the "dots_attn" policy, as in JAX
+        with checkpoint_name("attn_out"):
+            o = o.reshape(b, s, cfg.hidden_size)
+        return self.out(o)
 
 
 class GPTMLP(nn.Module):
@@ -232,15 +348,26 @@ class GPTBlock(nn.Module):
                                  generator=generator)
         self.mlp = GPTMLP(cfg, device=device, dtype=dtype,
                           generator=generator)
+        self.dropout = Dropout(cfg.dropout)
 
-    def forward_with_aux(self, x: torch.Tensor):
-        """``(y, aux)``; a dense FFN's aux loss is a float32 zero."""
-        h = x + self.attn(self.ln1(x))
-        y = h + self.mlp(self.ln2(h))
+    def forward_with_aux(self, x: torch.Tensor, rng=None):
+        """``(y, aux)``; a dense FFN's aux loss is a float32 zero.  ``rng``
+        splits into the keys of the attention output's and the MLP
+        output's dropout."""
+        cfg = self.cfg
+        r1, r2 = (None, None) if rng is None else tuple(prng.split(rng))
+        a = self.attn(self.ln1(x), rng=r1)
+        if cfg.dropout > 0.0 and r1 is not None:
+            a = self.dropout(a, rng=r1)
+        h = x + a
+        m = self.mlp(self.ln2(h))
+        if cfg.dropout > 0.0 and r2 is not None:
+            m = self.dropout(m, rng=r2)
+        y = h + m
         return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y, _ = self.forward_with_aux(x)
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        y, _ = self.forward_with_aux(x, rng)
         return y
 
 
@@ -307,30 +434,33 @@ class GPT(nn.Module):
                 if self.cfg.tie_embeddings else None)
 
     def _remat_wrap(self, fn):
-        """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and
-        grad is on (policy ``"none"``: the block's activations are all
-        recomputed in the backward); ``fn`` itself otherwise."""
+        """``fn`` under :func:`remat` with ``cfg.remat_policy`` when
+        ``cfg.remat`` and grad is on; ``fn`` itself otherwise."""
         if not (self.cfg.remat and torch.is_grad_enabled()):
             return fn
-        return lambda *a: torch.utils.checkpoint.checkpoint(
-            fn, *a, use_reentrant=False)
+        return remat(fn, self.cfg.remat_policy)
 
-    def _run_blocks(self, h: torch.Tensor):
-        fwd = self._remat_wrap(lambda blk, x: blk.forward_with_aux(x))
+    def _run_blocks(self, h: torch.Tensor, rng=None):
+        keys = ([None] * len(self.blocks) if rng is None
+                else list(prng.split(rng, len(self.blocks))))
+        fwd = self._remat_wrap(lambda blk, x, r: blk.forward_with_aux(x, r))
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for blk in self.blocks:
-            h, a = fwd(blk, h)
+        for blk, k in zip(self.blocks, keys):
+            h, a = fwd(blk, h, k)
             aux = aux + a
         return h, aux
 
-    def _hidden_states(self, ids: torch.Tensor):
-        """Embedding + blocks -> (pre-head hidden, aux)."""
-        return self._run_blocks(self.embedding(ids))
+    def _hidden_states(self, ids: torch.Tensor, rng=None):
+        """Embedding + blocks -> (pre-head hidden, aux): the shared prefix
+        of the full-logits and chunked-CE paths."""
+        r0 = None
+        if rng is not None:
+            rng, r0 = prng.split(rng)
+        return self._run_blocks(self.embedding(ids, rng=r0), rng)
 
     def forward_with_aux(self, ids: torch.Tensor, rng=None):
-        """``(logits [B, S, V], aux)``.  ``rng`` is the JAX signature's
-        dropout key; with dropout 0 it is unused."""
-        h, aux = self._hidden_states(ids)
+        """``(logits [B, S, V], aux)``; ``rng`` is the dropout key."""
+        h, aux = self._hidden_states(ids, rng)
         return self.head(h, self._embed_weight()), aux
 
     def forward(self, ids: torch.Tensor, rng=None) -> torch.Tensor:
@@ -343,11 +473,49 @@ class GPT(nn.Module):
         from .generation import generate
         return generate(self, ids, max_new_tokens, **kw)
 
+    def _chunked_head_ce(self, h: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int) -> torch.Tensor:
+        """The head's norm once, then per chunk of ``ce_chunk`` positions
+        the logits and the CE sum and valid count under
+        ``torch.utils.checkpoint`` (recomputed in the backward), summed
+        chunk after chunk in float32: the ``[B, S, V]`` logits never
+        exist whole."""
+        c = self.cfg.ce_chunk
+        s_len = h.shape[1]
+        if s_len % c:
+            raise ValueError(f"seq {s_len} not divisible by ce_chunk {c}")
+        h = self.head.norm(h)
+        if self.head.proj is not None:
+            w, bias = self.head.proj.weight, self.head.proj.bias    # [H, V]
+        else:
+            w, bias = self._embed_weight().T, None
+
+        def chunk(hc, w, lc):
+            logits = torch.matmul(hc, w.to(hc.dtype))
+            if bias is not None:
+                logits = logits + bias.to(logits.dtype)
+            per = self.loss_helper(logits, lc)
+            valid = (lc != ignore_index).to(per.dtype)
+            return (per * valid).sum(), valid.sum()
+
+        if torch.is_grad_enabled():
+            plain = chunk
+            chunk = lambda *a: torch.utils.checkpoint.checkpoint(  # noqa: E731
+                plain, *a, use_reentrant=False, preserve_rng_state=False)
+        s_sum = v_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, s_len, c):
+            cs, cv = chunk(h[:, i:i + c], w, labels[:, i:i + c])
+            s_sum, v_sum = s_sum + cs, v_sum + cv
+        return s_sum / torch.clamp(v_sum, min=1.0)
+
     def loss(self, ids: torch.Tensor, labels: torch.Tensor, rng=None,
              ignore_index: int = -100) -> torch.Tensor:
         """Mean causal-LM loss over the labels that are not
         ``ignore_index``: ``sum(per_tok * valid) / max(sum(valid), 1)``,
-        float32."""
+        float32 (with ``ce_chunk``, the sums chunk by chunk)."""
+        if self.cfg.ce_chunk > 0:
+            h, _ = self._hidden_states(ids, rng)
+            return self._chunked_head_ce(h, labels, ignore_index)
         logits, _ = self.forward_with_aux(ids, rng)
         per_tok = self.loss_helper(logits, labels)              # [B, S]
         valid = (labels != ignore_index).to(per_tok.dtype)
@@ -359,25 +527,14 @@ def _check_config(cfg: GPTConfig) -> None:
     """Raise on what the port does not run yet."""
     if cfg.is_moe:
         raise NotImplementedError("MoE GPT blocks are not ported yet")
-    if cfg.dropout > 0.0:
-        raise NotImplementedError(
-            "dropout > 0 is not ported yet: it waits for JAX's key path "
-            "through _hidden_states and _run_blocks (one key for the "
-            "embedding, one a block, two inside each block)")
     if cfg.attn_impl in _MULTI_DEVICE_ATTN:
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is multi-GPU sequence "
             f"parallelism, not ported yet")
     if cfg.attn_impl not in ("dense", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    if cfg.remat and cfg.remat_policy != "none":
-        if cfg.remat_policy in ("dots", "dots_attn"):
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet")
-        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-    if cfg.ce_chunk > 0:
-        raise NotImplementedError("chunked cross-entropy (ce_chunk > 0) "
-                                  "is not ported yet")
+    if cfg.remat:
+        remat_policy(cfg.remat_policy)
 
 
 def build_gpt(cfg_or_name, *, device=None, dtype=None,
@@ -397,6 +554,6 @@ def build_gpt(cfg_or_name, *, device=None, dtype=None,
 
 def gpt_loss_fn(model: GPT, batch, rng=None) -> torch.Tensor:
     """``loss_fn`` for :func:`..parallel.api.build_train_step`.
-    ``batch = (ids, labels)``."""
+    ``batch = (ids, labels)``; ``rng`` is the dropout key."""
     ids, labels = batch
     return model.loss(ids, labels, rng)

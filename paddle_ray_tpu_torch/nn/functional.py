@@ -2,10 +2,10 @@
 ``paddle_ray_tpu/nn/functional.py``).  Plain PyTorch; each matches the
 JAX function's arithmetic, including where it computes in float32.
 
-Dropout draws its mask from an explicit key of :mod:`..core.prng`, bit
-for bit the mask ``jax.random.bernoulli`` gives the JAX function under the
-same key.  The JAX package's fallback for a missing key, the global key
-tracker of ``paddle_ray_tpu/core/rng.py``, is not ported.
+Dropout draws its mask from a key of :mod:`..core.prng`, bit for bit the
+mask ``jax.random.bernoulli`` gives the JAX function under the same key;
+given no key it takes :func:`..core.rng.next_key`, as the JAX function
+does.  On CUDA it is one kernel (:mod:`..ops.dropout`).
 
 Convolutions take and return channels-last tensors (``NHWC``) with the
 JAX package's weight layouts.  They run ``torch.nn.functional``'s
@@ -43,32 +43,21 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
 
 
-def no_key_error(what: str) -> NotImplementedError:
-    """The error for a dropout asked to draw without a key: the JAX
-    package would take one from its global tracker, which is not
-    ported."""
-    return NotImplementedError(
-        f"{what} in training needs an explicit rng key (core.prng): the "
-        f"global key tracker of paddle_ray_tpu/core/rng.py is not ported")
-
-
 def dropout(x: torch.Tensor, p: float, *, training: bool = True,
             rng=None, mode: str = "upscale_in_train") -> torch.Tensor:
     """``jax``-exact dropout: keep where ``prng.bernoulli(rng, 1 - p,
     x.shape)``; ``"upscale_in_train"`` divides the kept values by ``1 -
     p`` rounded to x's dtype, as the JAX function's weakly typed divisor
-    is."""
+    is.  Without ``rng`` the key is :func:`..core.rng.next_key`'s.
+    Differentiable; a CUDA tensor runs the dropout kernel forward and
+    backward (:func:`..ops.dropout.dropout`)."""
     if not training or p == 0.0:
         return x
     if rng is None:
-        raise no_key_error("dropout")
-    from ..core import prng
-    keep = 1.0 - p
-    mask = prng.bernoulli(prng.as_key(rng, x.device), keep, x.shape)
-    if mode == "upscale_in_train":
-        x = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
-    return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
-                                            device=x.device))
+        from ..core import rng as _rng
+        rng = _rng.next_key()
+    from ..ops.dropout import dropout as _dropout
+    return _dropout(x, rng, p, upscale=mode == "upscale_in_train")
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -177,14 +166,16 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor,
                                  mask: Optional[torch.Tensor] = None, *,
                                  causal: bool = False,
-                                 scale: Optional[float] = None
-                                 ) -> torch.Tensor:
+                                 scale: Optional[float] = None,
+                                 dropout_p: float = 0.0, rng=None,
+                                 training: bool = False) -> torch.Tensor:
     """Plain dense attention in the ``[B, S, H, D]`` layout: matmul, mask,
     float32 softmax, matmul -- the arithmetic of the JAX reference, not
     PyTorch's fused operator.  ``mask`` is boolean, broadcastable to
     ``[B, H, Sq, Sk]``; False logits become ``-inf`` (a row with no True
-    entry gives NaN, as in JAX).  The JAX function's probability dropout
-    is not ported."""
+    entry gives NaN, as in JAX).  With ``dropout_p > 0`` and
+    ``training``, the probabilities ``[B, H, Sq, Sk]`` (in q's dtype) go
+    through :func:`dropout` under ``rng``."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, D]
@@ -197,6 +188,8 @@ def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     if mask is not None:
         logits = logits.masked_fill(~mask.to(torch.bool), float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p > 0.0 and training:
+        probs = dropout(probs, dropout_p, training=True, rng=rng)
     return torch.matmul(probs, vh).transpose(1, 2)
 
 

@@ -58,7 +58,8 @@ class Linear(nn.Module):
 
 class Dropout(nn.Module):
     """:func:`functional.dropout` with rate ``p`` while the module is in
-    training mode, under the key passed to ``forward``."""
+    training mode, under the key passed to ``forward`` or, given none, a
+    key drawn from the global tracker (:func:`..core.rng.next_key`)."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()

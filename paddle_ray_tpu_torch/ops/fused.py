@@ -333,8 +333,8 @@ def fused_dropout_add_layernorm(x: torch.Tensor, residual: torch.Tensor,
     x/residual: ``[..., H]`` of one dtype; weight/bias: ``[H]``.  The seed
     is drawn from ``rng`` (a :mod:`..core.prng` key; a key on the host
     costs no device sync) as the JAX function draws it.  Without a key,
-    training with ``p > 0`` raises: the JAX package would take one from
-    its global key tracker, which is not ported.  ``block_rows`` is the
+    training with ``p > 0`` draws one from :func:`..core.rng.next_key`,
+    as the JAX function does outside a compiled step.  ``block_rows`` is the
     JAX kernel's row block, checked and kept for the signature: the mask
     does not depend on it and the CUDA kernels pick their own blocking.
     """
@@ -345,10 +345,10 @@ def fused_dropout_add_layernorm(x: torch.Tensor, residual: torch.Tensor,
                          f"{residual.dtype} {tuple(residual.shape)} differ")
     orig = x.shape
     n = orig[-1]
+    if rng is None and training and p > 0.0:
+        from ..core import rng as _rng
+        rng = _rng.next_key()
     if rng is None:
-        if training and p > 0.0:
-            from ..nn.functional import no_key_error
-            raise no_key_error("fused_dropout_add_layernorm")
         seed = 0
     else:
         seed = int(prng.randint(prng.as_key(rng), (1,), 0, 2 ** 31 - 1)[0])

@@ -16,7 +16,15 @@ What differs from ``torch.optim.AdamW``, and follows the JAX update:
 - weight decay applies to parameters with ``ndim > 1`` unless
   ``wd_mask_fn(name)`` says otherwise;
 - one step count for the optimizer, and a parameter whose ``.grad`` is
-  None is left alone that step.
+  None is left alone that step;
+- ``grad_clip`` (:mod:`.clip`) clips the gradients, in their dtype,
+  before the step count advances; an ``L1Decay`` / ``L2Decay``
+  (:mod:`..regularizer`) as ``weight_decay`` adds ``coeff * sign(p)`` /
+  ``coeff * p`` to the float32 gradient of each parameter the decay mask
+  selects, before the update rule;
+- a host-driven schedule (``lr.ReduceOnPlateau``) is read once at bind
+  into a live learning rate that :meth:`Optimizer.set_lr` rewrites, as
+  the JAX ``OptState.lr_value``.
 
 The JAX optimizer is built unbound and ``opt.init(params)`` makes its
 state; here an optimizer built without ``parameters`` is bound by
@@ -34,6 +42,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..regularizer import L1Decay, L2Decay
+from .clip import GradClipBase
 from .lr import ConstantLR, LRScheduler
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
@@ -46,17 +56,27 @@ class Optimizer(torch.optim.Optimizer):
     slot_names: Tuple[str, ...] = ()
 
     def __init__(self, learning_rate: Union[float, LRScheduler] = 1e-3, *,
-                 parameters=None, grad_clip=None, weight_decay: float = 0.0,
+                 parameters=None, grad_clip: Optional[GradClipBase] = None,
+                 weight_decay: Union[float, L1Decay, L2Decay] = 0.0,
                  wd_mask_fn: Optional[Callable[[str], bool]] = None,
                  multi_precision: bool = True):
-        if grad_clip is not None:
-            raise NotImplementedError("gradient clipping is not ported yet")
-        if not isinstance(weight_decay, (int, float)):
-            raise NotImplementedError(
-                "L1Decay / L2Decay regularizers are not ported yet; "
-                "weight_decay takes a float")
+        if grad_clip is not None and not isinstance(grad_clip, GradClipBase):
+            raise TypeError(f"grad_clip takes a clip of optimizer.clip, got "
+                            f"{type(grad_clip).__name__}")
+        self.grad_clip = grad_clip
+        # a regularizer couples into the gradient (in the base step,
+        # before the update rule); a float is each optimizer's own decay
+        self._l1_coeff = self._l2_coeff = 0.0
+        if isinstance(weight_decay, L1Decay):
+            self._l1_coeff, weight_decay = weight_decay.coeff, 0.0
+        elif isinstance(weight_decay, L2Decay):
+            self._l2_coeff, weight_decay = weight_decay.coeff, 0.0
+        elif not isinstance(weight_decay, (int, float)):
+            raise TypeError(f"weight_decay takes a float, L1Decay or "
+                            f"L2Decay, got {type(weight_decay).__name__}")
         self.lr = (learning_rate if isinstance(learning_rate, LRScheduler)
                    else ConstantLR(learning_rate))
+        self.lr_value: Optional[float] = None
         self.weight_decay = float(weight_decay)
         self.wd_mask_fn = wd_mask_fn
         self.multi_precision = multi_precision
@@ -96,7 +116,18 @@ class Optimizer(torch.optim.Optimizer):
             if (self.multi_precision and p.is_floating_point()
                     and p.dtype != torch.float32):
                 st["master"] = p.detach().float()
+        if self.lr.host_driven:
+            self.set_lr(self.lr.current_lr)
         return self
+
+    def set_lr(self, value: float) -> None:
+        """Rewrite the live learning rate of a host-driven schedule (the
+        JAX ``TrainState.set_lr``); the next steps use it."""
+        if not self.lr.host_driven:
+            raise ValueError(
+                "optimizer has no live learning rate: construct it with a "
+                "host-driven scheduler (lr.ReduceOnPlateau) to use set_lr")
+        self.lr_value = float(np.float32(value))
 
     @property
     def step_count(self) -> int:
@@ -119,18 +150,28 @@ class Optimizer(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         group = self.param_groups[0]
+        live = [(p, name) for p, name in zip(group["params"], group["names"])
+                if p.grad is not None]
+        grads = [p.grad for p, _ in live]
+        if self.grad_clip is not None:
+            grads = self.grad_clip(grads)
         group["step"] += 1
         t = group["step"]
-        lr = float(np.float32(self.lr(t)))
-        for p, name in zip(group["params"], group["names"]):
-            if p.grad is None:
-                continue
+        lr = (self.lr_value if self.lr_value is not None
+              else float(np.float32(self.lr(t))))
+        for (p, name), g in zip(live, grads):
             st = self.state[p]
-            wd = self.weight_decay if self._decays(p, name) else 0.0
+            decays = self._decays(p, name)
+            wd = self.weight_decay if decays else 0.0
             p32 = st.get("master")
             if p32 is None:
                 p32 = p if p.dtype == torch.float32 else p.float()
-            self._update(p32, p.grad.float(), st, lr, t, wd)
+            g32 = g.float()
+            if decays and self._l1_coeff:
+                g32 = g32 + self._l1_coeff * torch.sign(p32)
+            if decays and self._l2_coeff:
+                g32 = g32 + self._l2_coeff * p32
+            self._update(p32, g32, st, lr, t, wd)
             if p32 is not p:
                 p.copy_(p32)
         return loss

@@ -23,12 +23,17 @@ the JAX ``quantize_model`` / ``PTQ`` / ``QAT.convert``: each
 ``QuantizedLinear``'s ``weight_q`` (int8 ``[in, out]``), ``weight_scale``
 (float32 ``[1, out]``, or a scalar per tensor) and ``bias``, beside the
 float layers' keys (:func:`quantized_from_jax_state_dict`).
+
+A JAX optimizer's state carries over too (:func:`optimizer_from_jax_state`):
+its step count, each slot (AdamW's ``m`` and ``v``) and the float32
+masters, each named as the JAX model names its parameters
+(:func:`to_jax_key` maps the GPT's names), so a run can resume mid-curve.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -39,7 +44,8 @@ from .models.gpt import GPT, GPTConfig
 from .models.unet import UNet, UNetConfig
 from .quantization.quant import quantize_model
 
-__all__ = ["gpt_from_jax_state_dict", "gpt_to_jax_state_dict",
+__all__ = ["to_jax_key", "to_torch_key", "optimizer_from_jax_state",
+           "gpt_from_jax_state_dict", "gpt_to_jax_state_dict",
            "bert_from_jax_state_dict", "bert_to_jax_state_dict",
            "unet_from_jax_state_dict", "unet_to_jax_state_dict",
            "incubate_from_jax_state_dict", "incubate_to_jax_state_dict",
@@ -51,12 +57,46 @@ _JAX_BERT_LAYER = re.compile(r"^bert\.layers\.items\.(\d+)\.")
 _TORCH_BERT_LAYER = re.compile(r"^bert\.layers\.(\d+)\.")
 
 
-def _to_torch_key(key: str) -> str:
+def to_torch_key(key: str) -> str:
+    """A JAX GPT parameter name as the port names it."""
     return _JAX_BLOCK.sub(r"blocks.\1.", key)
 
 
-def _to_jax_key(key: str) -> str:
+def to_jax_key(key: str) -> str:
+    """A port GPT parameter name as the JAX package names it."""
     return _TORCH_BLOCK.sub(r"blocks.items.\1.", key)
+
+
+def optimizer_from_jax_state(opt, step: int,
+                             slots: Dict[str, Dict[str, np.ndarray]],
+                             master: Optional[Dict[str, np.ndarray]] = None
+                             ) -> None:
+    """Load a JAX ``OptState`` into the bound optimizer ``opt`` in place:
+    ``step``, and for each parameter its float32 slot values (``slots[slot]
+    [jax name]``, e.g. AdamW's ``m`` and ``v``) and, where ``opt`` keeps
+    one, its float32 master (``master[jax name]``), the JAX names being
+    :func:`to_jax_key` of the port's.  A missing entry or a shape that
+    differs raises."""
+    group = opt.param_groups[0]
+    if None in group["names"]:
+        raise ValueError("the optimizer's parameters have no names")
+    with torch.no_grad():
+        for p, name in zip(group["params"], group["names"]):
+            key = to_jax_key(name)
+            st = opt.state[p]
+            wanted = [(slot, slots[slot]) for slot in opt.slot_names]
+            if "master" in st:
+                if master is None:
+                    raise KeyError("the optimizer keeps float32 masters: "
+                                   "pass master=")
+                wanted.append(("master", master))
+            for slot, arrays in wanted:
+                arr = np.asarray(arrays[key], dtype=np.float32)
+                if arr.shape != tuple(st[slot].shape):
+                    raise ValueError(f"shape mismatch for {slot} of {key}: "
+                                     f"{arr.shape} vs {tuple(st[slot].shape)}")
+                st[slot].copy_(torch.from_numpy(arr))
+    group["step"] = int(step)
 
 
 def gpt_from_jax_state_dict(cfg: GPTConfig, state: Dict[str, np.ndarray], *,
@@ -67,7 +107,7 @@ def gpt_from_jax_state_dict(cfg: GPTConfig, state: Dict[str, np.ndarray], *,
     missing or unexpected key, or a shape that differs, raises."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    given = {_to_torch_key(k): v for k, v in state.items()}
+    given = {to_torch_key(k): v for k, v in state.items()}
     with torch.no_grad():
         model = GPT(cfg, device=device)
         if any(k.endswith(".weight_q") for k in given):
@@ -113,7 +153,7 @@ def _state_with_int8(model: torch.nn.Module, rename=lambda k: k
 def gpt_to_jax_state_dict(model: GPT) -> Dict[str, np.ndarray]:
     """The JAX-named state dict of ``model``: float32 numpy arrays, and
     int8 ones for an int8 decode model's values."""
-    return _state_with_int8(model, _to_jax_key)
+    return _state_with_int8(model, to_jax_key)
 
 
 def unet_from_jax_state_dict(cfg: UNetConfig, state: Dict[str, np.ndarray],

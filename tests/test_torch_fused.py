@@ -108,12 +108,22 @@ def test_dropout_matches_jax(dtype, mode):
 
 
 def test_dropout_without_key_raises():
-    with pytest.raises(NotImplementedError, match="core/rng.py"):
-        F.dropout(torch.ones(3), 0.5, training=True)
-    with pytest.raises(NotImplementedError, match="core/rng.py"):
-        fused.fused_dropout_add_layernorm(
-            torch.ones(2, 4), torch.ones(2, 4), torch.ones(4),
-            torch.zeros(4), p=0.1, training=True)
+    """Without a key, dropout draws from the key tracker; inside a train
+    step given no key that draw raises, as in the jitted JAX step."""
+    from paddle_ray_tpu_torch.core import rng
+
+    rng.seed(0)
+    want = F.dropout(torch.ones(3), 0.5, training=True,
+                     rng=rng.next_key())
+    rng.seed(0)
+    assert torch.equal(F.dropout(torch.ones(3), 0.5, training=True), want)
+    with rng.refuse_default_draws():
+        with pytest.raises(RuntimeError, match="rng"):
+            F.dropout(torch.ones(3), 0.5, training=True)
+        with pytest.raises(RuntimeError, match="rng"):
+            fused.fused_dropout_add_layernorm(
+                torch.ones(2, 4), torch.ones(2, 4), torch.ones(4),
+                torch.zeros(4), p=0.1, training=True)
     # no key needed without dropout
     y, h = fused.fused_dropout_add_layernorm(
         torch.ones(2, 4), torch.ones(2, 4), torch.ones(4), torch.zeros(4),

@@ -132,17 +132,31 @@ def test_layer_output_and_every_grad_match_jax(kind, normalize_before,
 
 def test_training_dropout_is_applied_and_keyed():
     """With dropout, two keys give two outputs and one key one output;
-    eval ignores the key; training without a key raises (the JAX global
-    key tracker is not ported)."""
-    _, tm, _ = _build("encoder", False, 0.1)
+    eval ignores the key; training without a key draws each dropout's key
+    from the key tracker, as the eager JAX layer does (equal outputs
+    after equal seeds), and inside a train step given no key that draw
+    raises, as in the jitted JAX step."""
+    import paddle_ray_tpu as prt
+    from paddle_ray_tpu_torch.core import rng
+
+    jm, tm, _ = _build("encoder", False, 0.1)
     x = torch.from_numpy(_inputs("encoder")[0])
     k1 = np.asarray(jax.random.key_data(jax.random.PRNGKey(1)))
     k2 = np.asarray(jax.random.key_data(jax.random.PRNGKey(2)))
     with torch.no_grad():
         a, b, c = tm(x, rng=k1), tm(x, rng=k1), tm(x, rng=k2)
         assert torch.equal(a, b) and not torch.equal(a, c)
-        with pytest.raises(NotImplementedError, match="core/rng.py"):
-            tm(x)
+        rng.seed(4)
+        prt.seed(4)
+        drawn = tm(x)
+        np.testing.assert_allclose(drawn.numpy(), np.asarray(
+            jm(jnp.asarray(x.numpy()))), **TOL)
+        assert not torch.equal(drawn, tm(x))
+        rng.seed(0)
+        prt.seed(0)
+        with rng.refuse_default_draws():
+            with pytest.raises(RuntimeError, match="rng"):
+                tm(x)
         tm.eval()
         assert torch.equal(tm(x), tm(x, rng=k1))
 

@@ -34,7 +34,7 @@ from paddle_ray_tpu_torch.models.gpt import GPTConfig
 from paddle_ray_tpu_torch.optimizer import Adam, AdamW, ConstantLR
 from paddle_ray_tpu_torch.parallel import (ParallelCrossEntropy, TrainState,
                                            build_train_step)
-from paddle_ray_tpu_torch.weights import _to_jax_key, gpt_from_jax_state_dict
+from paddle_ray_tpu_torch.weights import gpt_from_jax_state_dict, to_jax_key
 
 # the configuration of tests/test_torch_gpt.py
 SHAPE = dict(vocab_size=97, max_seq_len=64, hidden_size=32, num_layers=2,
@@ -111,10 +111,10 @@ def test_loss_and_every_grad_match_jax(attn_impl):
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j),
                                rtol=1e-5, atol=1e-5)
     names = [n for n, _ in tm.named_parameters()]
-    assert sorted(_to_jax_key(n) for n in names) == sorted(grads_j)
+    assert sorted(to_jax_key(n) for n in names) == sorted(grads_j)
     for name, p in tm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(),
-                                   np.asarray(grads_j[_to_jax_key(name)]),
+                                   np.asarray(grads_j[to_jax_key(name)]),
                                    rtol=1e-4, atol=1e-5, err_msg=name)
 
 
@@ -236,10 +236,14 @@ def test_remat_gives_the_same_grads(attn_impl):
                                    msg=name)
 
 
+# dropout, the "dots" remat policies and ce_chunk are ported
+# (tests/test_torch_train_options.py); the MoE FFN's gates take their cases
 @pytest.mark.parametrize("override", [
     dict(attn_impl="ring"), dict(attn_impl="ring_flash"),
-    dict(attn_impl="ulysses"), dict(remat_policy="dots"),
-    dict(remat_policy="dots_attn"), dict(ce_chunk=16), dict(dropout=0.1),
+    dict(attn_impl="ulysses"), dict(moe_num_experts=4, moe_gate="switch"),
+    dict(moe_num_experts=4, moe_gate="naive"),
+    dict(moe_num_experts=8, moe_top_k=1), dict(moe_num_experts=2,
+                                               dropout=0.1),
     dict(moe_num_experts=4)])
 def test_unported_model_options_raise(override):
     cfg = dataclasses.replace(GPTConfig(**SHAPE), **override)
@@ -247,8 +251,9 @@ def test_unported_model_options_raise(override):
         build_gpt(cfg, device="cpu")
 
 
+# grad_accum is ported (tests/test_torch_train_options.py)
 @pytest.mark.parametrize("option", [
-    dict(topo=object()), dict(zero_stage=1), dict(grad_accum=2),
+    dict(topo=object()), dict(zero_stage=1), dict(zero_stage=3),
     dict(has_aux=True), dict(scaler=object()),
     dict(value_and_grad_fn=lambda m, b, r: None),
     dict(offload_opt_state=True), dict(comm_bucket_mb=25.0),
@@ -260,10 +265,11 @@ def test_unported_train_step_options_raise(option):
 
 
 def test_unported_optimizer_options_raise_and_batch_device_is_checked():
-    with pytest.raises(NotImplementedError):
+    # clips and L1Decay / L2Decay are ported: anything else is refused
+    with pytest.raises(TypeError):
         AdamW(1e-3, grad_clip=object())
-    with pytest.raises(NotImplementedError):
-        AdamW(1e-3, weight_decay=object())      # an L1Decay / L2Decay
+    with pytest.raises(TypeError):
+        AdamW(1e-3, weight_decay=object())
     m = build_gpt(GPTConfig(**SHAPE), device="cpu")
     ts = build_train_step(m, AdamW(1e-3), gpt_loss_fn, donate=False)
     ids = torch.zeros(1, 8, dtype=torch.long, device="meta")

@@ -43,7 +43,15 @@ other.  Each turn builds its tree's kernels and times them with its tree's
   ``chip_smoke.phase_unet_train`` (``bench.py:bench_unet``'s model, bf16,
   batch 32 of 64x64x4, AdamW; 2 warm-up and 10 timed steps, then one
   profiled step): step ms, images/s, the profiled step's device ms, idle
-  share and GroupNorm kernel ms (forward, backward).
+  share and GroupNorm kernel ms (forward, backward);
+* ``train``: the tree's own ``chip_smoke.phase_train`` (gpt3-350m, bf16,
+  flash, batch 8 x 1024, AdamW), ``phase_bert_train`` (BERT-large, batch
+  8 x 512) and ``phase_encoder_train`` (24 fused encoder layers, batch 8
+  x 512): each step ms, tokens/s and its profiled step's device ms and
+  idle share; then the host time of one call of the tree's
+  ``flash_attention`` at a shape whose kernels take a few microseconds
+  (bf16, causal, B 1, S 128, H 1, D 64), forward alone and forward with
+  backward, the mean of ``FLASH_HOST_CALLS`` calls after a warm-up.
 
 The inputs of ``dal``, ``decode``, ``int8mm``, ``stream`` and ``gn`` are made from
 a seed by this script, the same in every turn.  A shape a tree's kernels refuse (a head dim it was
@@ -61,6 +69,7 @@ with a CUDA card::
     python3 tools/torch_ab.py stream archive_check/parent
     python3 tools/torch_ab.py gn archive_check/parent
     python3 tools/torch_ab.py unet archive_check/parent
+    python3 tools/torch_ab.py train archive_check/parent
 """
 from __future__ import annotations
 
@@ -316,6 +325,61 @@ print(json.dumps({"step_ms": train["step_ms"],
 '''
 
 
+FLASH_HOST_CALLS = 500
+
+# argv: the tree, calls of the host-time loop
+TRAIN_TURN = r'''
+import contextlib, importlib, io, json, sys, time, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+log = io.StringIO()
+with contextlib.redirect_stdout(log):
+    chip_smoke.phase_device()
+    chip_smoke.phase_train()
+    chip_smoke.phase_bert_train()
+    chip_smoke.phase_encoder_train()
+rows = {r["phase"]: r for r in map(json.loads, filter(
+    lambda l: l.startswith("{"), log.getvalue().splitlines()))}
+out = {}
+for run, prof in (("train", "train_profile"), ("bert_train", "bert_profile"),
+                  ("encoder_train", "encoder_profile")):
+    out[run] = {"step_ms": rows[run]["step_ms"],
+                "tokens_per_s": rows[run]["tokens_per_s"],
+                "profiled_device_ms": rows[prof]["device_ms"],
+                "device_idle_share": rows[prof]["device_idle_share"]}
+fa = importlib.import_module("paddle_ray_tpu_torch.ops.flash_attention")
+calls = int(sys.argv[2])
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn(1, 128, 1, 64, device="cuda", generator=g,
+                       dtype=torch.bfloat16).requires_grad_()
+           for _ in range(3))
+do = torch.randn(1, 128, 1, 64, device="cuda", generator=g,
+                 dtype=torch.bfloat16)
+
+
+def forward():
+    with torch.no_grad():
+        fa.flash_attention(q, k, v, causal=True)
+
+
+def forward_backward():
+    fa.flash_attention(q, k, v, causal=True).backward(do)
+
+
+for name, fn in (("forward", forward), ("forward_backward",
+                                        forward_backward)):
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    out[f"flash_host_us_{name}"] = 1e6 * (time.perf_counter() - t0) / calls
+print(json.dumps(out))
+'''
+
+
 def _flash_args() -> list:
     """This tree's bf16 flash cases and modes, and the rows the
     causal-segments mode leaves no visible key."""
@@ -389,13 +453,14 @@ KINDS = {"flash": (FLASH_TURN, _flash_args), "paged": (PAGED_TURN, _paged_args),
          "dal": (DAL_TURN, _dal_args), "decode": (DECODE_TURN, _decode_args),
          "int8mm": (INT8MM_TURN, _int8mm_args),
          "stream": (STREAM_TURN, _stream_args), "gn": (GN_TURN, _gn_args),
-         "unet": (UNET_TURN, list)}
+         "unet": (UNET_TURN, list),
+         "train": (TRAIN_TURN, lambda: [str(FLASH_HOST_CALLS)])}
 
 
 def main() -> None:
     if len(sys.argv) != 3 or sys.argv[1] not in KINDS:
-        raise SystemExit("usage: python3 tools/torch_ab.py "
-                         "{flash,paged,dal,decode,int8mm,stream,gn,unet} OTHER_TREE")
+        raise SystemExit("usage: python3 tools/torch_ab.py {flash,paged,"
+                         "dal,decode,int8mm,stream,gn,unet,train} OTHER_TREE")
     turn, make_args = KINDS[sys.argv[1]]
     trees = {"other": os.path.abspath(sys.argv[2]), "this": ROOT}
     sys.path.insert(0, ROOT)
