@@ -12,8 +12,11 @@ slices decode with ``generate()`` and int8, train the SD-UNet with fused
 GroupNorm kernels, and pretrain BERT and train the ``incubate.nn`` fused
 encoder layers with fused dropout-add-LayerNorm kernels
 (``ops/csrc/fused.cu``) and the flash kernels' bias, mask and segment
-ids.  Entry points run on the CUDA device unless the caller passes
-``device="cpu"``, where every kernel's plain PyTorch version runs instead.
+ids; a later one trains gpt3-1.3b with ``MemoryEfficientAdamW``, whose
+update is one kernel a parameter (``ops/csrc/me_adamw.cu``), beside the
+other optimizers, AMP (:mod:`.amp`) and optimizer-state offload.  Entry
+points run on the CUDA device unless the caller passes ``device="cpu"``,
+where every kernel's plain PyTorch version runs instead.
 """
 from .core.rng import seed
 from .device import default_device, resolve_device

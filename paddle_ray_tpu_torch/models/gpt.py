@@ -37,6 +37,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..amp.auto_cast import current_policy, policy_scope
 from ..core import dtypes as _dt
 from ..core import prng
 from ..core import rng as _rng
@@ -235,9 +236,11 @@ def _entered(*cms):
 
 
 def _remat_contexts(policy):
-    """``context_fn`` of the block checkpoint: the key tracker's replay
-    and, with a policy, the selective-checkpoint contexts."""
+    """``context_fn`` of the block checkpoint: the key tracker's replay,
+    the AMP policy of the forward re-entered in the recompute and, with a
+    policy, the selective-checkpoint contexts."""
     fwd, rec = _rng.checkpoint_contexts()
+    rec = _entered(rec, policy_scope(current_policy()))
     if policy is None:
         return fwd, rec
     from torch.utils.checkpoint import create_selective_checkpoint_contexts

@@ -1,7 +1,8 @@
 """Layers on the GPT, UNet and BERT paths (counterparts of
 ``paddle_ray_tpu/nn/layers.py``).  Parameters keep the JAX package's
 names, shapes and initializers; each layer draws them from the passed
-:class:`torch.Generator`."""
+:class:`torch.Generator`.  ``Linear`` and the convolutions cast their
+input to the AMP compute dtype inside :func:`..amp.auto_cast`."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +10,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..amp.auto_cast import cast_if_enabled
 from . import functional as F
 from . import init as I
 
@@ -53,7 +55,7 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(cast_if_enabled(x), self.weight, self.bias)
 
 
 class Dropout(nn.Module):
@@ -130,6 +132,7 @@ class Conv2D(_Conv2DBase):
                          padding, dilation, groups, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = cast_if_enabled(x)
         return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
                         self.dilation, self.groups)
 
@@ -147,6 +150,7 @@ class Conv2DTranspose(_Conv2DBase):
                          padding, dilation, groups, output_padding, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = cast_if_enabled(x)
         return F.conv2d_transpose(
             x, self.weight, self.bias, self.stride, self.padding,
             self.output_padding, self.groups, self.dilation)

@@ -10,6 +10,7 @@ from .fused import (dal_backward, dal_backward_plain, dal_forward,
 from .groupnorm import (fused_group_norm, fused_group_norm_bwd,
                         fused_group_norm_bwd_plain, fused_group_norm_fwd,
                         fused_group_norm_fwd_plain)
+from .me_adamw import me_adamw_update
 from .paged_attention import (DEFAULT_PAGE_SIZE, paged_decode_attention,
                               paged_ragged_attention,
                               paged_ragged_attention_plain)
@@ -21,6 +22,6 @@ __all__ = ["DEFAULT_PAGE_SIZE", "dal_backward", "dal_backward_plain",
            "fused_group_norm", "fused_group_norm_bwd",
            "fused_group_norm_bwd_plain", "fused_group_norm_fwd",
            "fused_group_norm_fwd_plain", "int8_matmul", "int8_matmul_plain",
-           "int8_mm", "keep_mask_plain",
+           "int8_mm", "keep_mask_plain", "me_adamw_update",
            "paged_decode_attention", "paged_ragged_attention",
            "paged_ragged_attention_plain"]

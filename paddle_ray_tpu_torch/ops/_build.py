@@ -3,20 +3,24 @@
 Each ``ops/csrc/<name>.cu`` exposes a plain C entry point (no PyTorch
 headers), so one ``nvcc`` call builds it in seconds.  The shared object
 lands in ``paddle_ray_tpu_torch/_build/`` (git-ignored), named by a hash
-of the source and the flags, at first use; later calls in the process
-reuse the loaded library.  A failed build raises: there is no fallback.
+of the source, every ``ops/csrc`` header it includes (``#include
+"x.cuh"``, followed through the headers' own includes) and the flags, at
+first use; later calls in the process reuse the loaded library.  A failed
+build raises: there is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
-__all__ = ["NVCC_FLAGS", "build", "build_all", "csrc_path", "load", "nvcc"]
+__all__ = ["NVCC_FLAGS", "build", "build_all", "csrc_path", "load", "nvcc",
+           "sources"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -26,10 +30,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def csrc_path(name: str) -> str:
     return os.path.join(_CSRC, f"{name}.cu")
+
+
+def sources(name: str, csrc: str = _CSRC) -> List[str]:
+    """``csrc/<name>.cu`` and every header of ``csrc`` it includes with
+    quotes, directly or through another header, in the order first
+    met."""
+    seen = [os.path.join(csrc, f"{name}.cu")]
+    for path in seen:
+        with open(path) as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(csrc, inc)
+                if os.path.exists(dep) and dep not in seen:
+                    seen.append(dep)
+    return seen
 
 
 def nvcc() -> str:
@@ -46,9 +65,13 @@ def nvcc() -> str:
                        "the port's CUDA kernels are built from source")
 
 
-def _target(name: str) -> str:
-    with open(csrc_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+def _target(name: str, csrc: str = _CSRC) -> str:
+    digest = hashlib.sha256()
+    for path in sources(name, csrc):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(_BUILD, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

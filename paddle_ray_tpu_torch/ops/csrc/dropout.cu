@@ -39,42 +39,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kF32 = 0, kBF16 = 1;
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 8;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
-
-// threefry2x32 of the counter words (x0, x1) under the key (k0, k1): the steps
-// of `core/prng.py:threefry2x32`
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint32_t x0,
-                                                  uint32_t x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-#define PRT_ROUND(r) \
-  x0 += x1;          \
-  x1 = rotl(x1, r) ^ x0;
-  x0 += k0;
-  x1 += k1;
-  PRT_ROUND(13) PRT_ROUND(15) PRT_ROUND(26) PRT_ROUND(6)
-  x0 += k1;
-  x1 += k2 + 1u;
-  PRT_ROUND(17) PRT_ROUND(29) PRT_ROUND(16) PRT_ROUND(24)
-  x0 += k2;
-  x1 += k0 + 2u;
-  PRT_ROUND(13) PRT_ROUND(15) PRT_ROUND(26) PRT_ROUND(6)
-  x0 += k0;
-  x1 += k1 + 3u;
-  PRT_ROUND(17) PRT_ROUND(29) PRT_ROUND(16) PRT_ROUND(24)
-  x0 += k1;
-  x1 += k2 + 4u;
-  PRT_ROUND(13) PRT_ROUND(15) PRT_ROUND(26) PRT_ROUND(6)
-  x0 += k2;
-  x1 += k0 + 5u;
-#undef PRT_ROUND
-  return x0 ^ x1;
-}
 
 struct Args {
   const void* x;
@@ -96,8 +67,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32(float v, __nv_bfloat16) {
 // element i: kept, x / keep (or x); else 0
 template <typename T>
 __device__ __forceinline__ T drop_one(const Args& a, uint64_t i, T v) {
-  const uint32_t bits = threefry_bits(a.k0, a.k1, static_cast<uint32_t>(i >> 32),
-                                      static_cast<uint32_t>(i));
+  const uint32_t bits = prt::threefry_bits_at(a.k0, a.k1, i);
   const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
   if (!(u < a.keep_p)) return from_f32(0.0f, T());
   return a.upscale ? from_f32(__fdiv_rn(to_f32(v), a.divisor), T()) : v;

@@ -8,13 +8,20 @@ from .lr import (ConstantLR, CosineAnnealingDecay, CyclicLR,
                  LinearWarmup, LRScheduler, MultiplicativeDecay,
                  MultiStepDecay, NaturalExpDecay, NoamDecay, OneCycleLR,
                  PiecewiseDecay, PolynomialDecay, ReduceOnPlateau, StepDecay)
-from .optimizer import Adam, AdamW, Optimizer
+from .memory_efficient import (MemoryEfficientAdamW, QMoment,
+                               dequantize_blockwise, quantize_blockwise,
+                               stochastic_round)
+from .optimizer import (LARS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                        Lamb, Momentum, Optimizer, RMSProp)
 
-__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "ConstantLR", "CosineAnnealingDecay",
-           "CyclicLR", "ExponentialDecay", "GradClipBase",
-           "InverseTimeDecay", "LRScheduler", "LambdaDecay", "LinearWarmup",
-           "MultiStepDecay", "MultiplicativeDecay", "NaturalExpDecay",
-           "NoamDecay", "OneCycleLR", "Optimizer", "PiecewiseDecay",
-           "PolynomialDecay", "ReduceOnPlateau", "StepDecay", "clip",
-           "global_norm", "lr"]
+__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "AdamW",
+           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "ConstantLR", "CosineAnnealingDecay", "CyclicLR",
+           "ExponentialDecay", "GradClipBase", "InverseTimeDecay", "LARS",
+           "LRScheduler", "Lamb", "LambdaDecay", "LinearWarmup",
+           "MemoryEfficientAdamW", "Momentum", "MultiStepDecay",
+           "MultiplicativeDecay", "NaturalExpDecay", "NoamDecay",
+           "OneCycleLR", "Optimizer", "PiecewiseDecay", "PolynomialDecay",
+           "QMoment", "RMSProp", "ReduceOnPlateau", "SGD", "StepDecay",
+           "clip", "dequantize_blockwise", "global_norm", "lr",
+           "quantize_blockwise", "stochastic_round"]

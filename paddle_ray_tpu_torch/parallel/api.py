@@ -7,10 +7,15 @@ runs the same sequence as calls: zero the grads, forward, backward,
 optimizer update in place.  As in JAX, the loss runs under
 :func:`..core.rng.key_scope` of the step's key, and a draw from the key
 tracker itself (a step given no key) raises.  Gradient accumulation cuts the batch into
-micro-batches, each under its own key.  Multi-device layouts (data,
-tensor, sequence or pipeline parallel, ZeRO), loss scaling, ``has_aux``,
-optimizer-state offload and bucketed gradient communication are not
-ported yet and raise :class:`NotImplementedError`.
+micro-batches, each under its own key.  ``has_aux`` takes the model's
+buffers from the model the loss function returns; a ``scaler``
+(:class:`..amp.GradScaler`) scales the loss, unscales and checks the
+gradients and skips the update of a step whose gradients are not finite;
+``offload_opt_state`` keeps the optimizer's state in pinned host memory
+between steps (:meth:`..optimizer.Optimizer.offload_state`).
+Multi-device layouts (data, tensor, sequence or pipeline parallel, ZeRO)
+and bucketed gradient communication are not ported yet and raise
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -49,14 +54,20 @@ def _tensors(tree):
 
 class TrainState:
     """The model, its bound optimizer and the loss function; ``step``
-    runs one update."""
+    runs one update.  With a scaler, ``scaler_state`` is its
+    :class:`..amp.ScalerState` (device tensors)."""
 
     def __init__(self, model: nn.Module, opt: Optimizer,
-                 loss_fn: Callable[..., torch.Tensor], grad_accum: int = 1):
+                 loss_fn: Callable[..., Any], grad_accum: int = 1,
+                 has_aux: bool = False, scaler=None):
         self.model = model
         self.opt = opt
         self.loss_fn = loss_fn
         self.grad_accum = grad_accum
+        self.has_aux = has_aux
+        self.scaler = scaler
+        self.scaler_state = (None if scaler is None
+                             else scaler.init_state(self._device()))
         self.last_loss: Optional[torch.Tensor] = None
         self.step_count = 0
 
@@ -64,14 +75,36 @@ class TrainState:
         p = next(self.model.parameters(), None)
         return None if p is None else p.device
 
-    def _loss(self, batch, rng) -> torch.Tensor:
-        """``loss_fn`` under the key's scope, tracker draws refused (the
-        JAX step's ``compute_loss``, whose trace refuses them)."""
+    def _loss(self, batch, rng):
+        """``(loss, updated model or None)``: ``loss_fn`` under the key's
+        scope, tracker draws refused (the JAX step's ``compute_loss``,
+        whose trace refuses them)."""
         with _rng.refuse_default_draws():
             if rng is None:
-                return self.loss_fn(self.model, batch, rng)
-            with _rng.key_scope(rng):
-                return self.loss_fn(self.model, batch, rng)
+                out = self.loss_fn(self.model, batch, rng)
+            else:
+                with _rng.key_scope(rng):
+                    out = self.loss_fn(self.model, batch, rng)
+        return out if self.has_aux else (out, None)
+
+    def _backward(self, loss: torch.Tensor, updated) -> torch.Tensor:
+        """Backward of the (scaled) loss, then the buffers of the model
+        ``loss_fn`` returned taken into the model (after the backward, which
+        may need the old values): the next micro-batch and the next step
+        see them.  Returns the detached loss."""
+        if self.scaler is not None:
+            self.scaler.scale(loss, self.scaler_state).backward()
+        else:
+            loss.backward()
+        if updated is not None and updated is not self.model:
+            mine = dict(self.model.named_buffers())
+            with torch.no_grad():
+                for name, b in updated.named_buffers():
+                    if name not in mine:
+                        raise KeyError(f"loss_fn returned a model with a "
+                                       f"buffer {name!r} the model lacks")
+                    mine[name].copy_(b)
+        return loss.detach()
 
     def _micro_batches(self, batch) -> list:
         n = self.grad_accum
@@ -100,16 +133,12 @@ class TrainState:
         self.opt.zero_grad(set_to_none=True)
         n = self.grad_accum
         if n == 1:
-            loss = self._loss(batch, rng)
-            loss.backward()
-            loss = loss.detach()
+            loss = self._backward(*self._loss(batch, rng))
         else:
             keys = [None] * n if rng is None else list(prng.split(rng, n))
             losses = []
             for mb, key in zip(self._micro_batches(batch), keys):
-                loss = self._loss(mb, key)
-                loss.backward()
-                losses.append(loss.detach())
+                losses.append(self._backward(*self._loss(mb, key)))
             # a divide by a tensor: a Python number would be a reciprocal
             # product on the card; a fill, not a copy from the host, which
             # would wait for the device
@@ -123,10 +152,29 @@ class TrainState:
                         p.grad.div_(divs[dt])
             loss = torch.stack(losses).sum() / torch.full(
                 (), n, dtype=torch.float32, device=dev)
-        self.opt.step()
+        if self.scaler is None:
+            self.opt.step()
+        else:
+            self._scaled_step()
         self.step_count += 1
         self.last_loss = loss
         return self.last_loss
+
+    def _scaled_step(self) -> None:
+        """Unscale and check the gradients; update unless one is not
+        finite, then advance the scaler.  A skipped step leaves the
+        parameters, every slot, the masters and the optimizer's step count
+        as they were (the JAX step keeps the whole optimizer state).  The
+        step count lives on the host, so ``found_inf`` is read there: one
+        host-device sync a step, with a scaler only."""
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        grads, found_inf = self.scaler.unscale_and_check(
+            [p.grad for p in params], self.scaler_state)
+        for p, g in zip(params, grads):
+            p.grad = g
+        if not bool(found_inf):
+            self.opt.step()
+        self.scaler_state = self.scaler.update(self.scaler_state, found_inf)
 
     def set_lr(self, value: float) -> None:
         """The learning rate of the next steps, for a host-driven schedule
@@ -151,20 +199,34 @@ def build_train_step(model: nn.Module, opt: Optimizer,
     optimizer is bound to ``model.named_parameters()`` (an optimizer
     already bound to these parameters is taken as it is).  ``donate`` is
     accepted: the update is in place.  ``grad_accum`` cuts each batch
-    into that many micro-batches (see :meth:`TrainState.step`).  Every
-    other option is a multi-device or mixed-precision feature not ported
-    yet and raises :class:`NotImplementedError`: ``topo`` (any topology),
-    ``zero_stage > 0``, ``has_aux``, ``scaler``, ``value_and_grad_fn``,
-    ``offload_opt_state``, ``comm_bucket_mb`` and ``comm_dtype``.
+    into that many micro-batches (see :meth:`TrainState.step`).
+
+    ``has_aux=True``: ``loss_fn`` returns ``(loss, updated_model)``; the
+    buffers (non-parameter tensors, e.g. running statistics) of
+    ``updated_model`` replace the model's after each micro-batch's
+    backward, so the next micro-batch and the next step see them.  A
+    ``loss_fn`` that updates the model's buffers in place returns the
+    model itself.
+
+    ``scaler``: an :class:`..amp.GradScaler`; the step scales the loss,
+    unscales and checks the gradients in float32, skips the optimizer
+    update of a step with a non-finite gradient and advances the scaler
+    (``TrainState.scaler_state``).
+
+    ``offload_opt_state=True``: on CUDA, the optimizer's state lives in
+    pinned host memory between steps and is staged through device buffers
+    around each parameter's update (:meth:`..optimizer.Optimizer.
+    offload_state`); on the CPU it changes nothing, as in JAX.
+
+    Every other option is a multi-device feature not ported yet and raises
+    :class:`NotImplementedError`: ``topo`` (any topology), ``zero_stage >
+    0``, ``value_and_grad_fn``, ``comm_bucket_mb`` and ``comm_dtype``.
     """
     refused = {
         "topo (multi-device meshes)": topo is not None,
         "zero_stage > 0": zero_stage > 0,
-        "has_aux": has_aux,
-        "scaler (float16 loss scaling)": scaler is not None,
         "value_and_grad_fn (pipeline schedules)":
             value_and_grad_fn is not None,
-        "offload_opt_state": offload_opt_state,
         "comm_bucket_mb / comm_dtype": (comm_bucket_mb is not None
                                         or comm_dtype is not None),
     }
@@ -184,4 +246,6 @@ def build_train_step(model: nn.Module, opt: Optimizer,
                for p in g["params"]):
             raise ValueError("optimizer is bound to parameters that are "
                              "not the model's")
-    return TrainState(model, opt, loss_fn, grad_accum)
+    if offload_opt_state:
+        opt.offload_state()
+    return TrainState(model, opt, loss_fn, grad_accum, has_aux, scaler)

@@ -4,7 +4,8 @@
 The weights keep the JAX layout ``[in, out]`` so state dicts carry over
 unchanged: ``y = x @ W + b``.  Parameters are drawn from
 ``normal(0, std)`` with the caller's :class:`torch.Generator`; biases
-start at zero, as in the JAX package."""
+start at zero, as in the JAX package.  The linears cast their input to the
+AMP compute dtype inside :func:`..amp.auto_cast`."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..amp.auto_cast import cast_if_enabled
 from ..nn import functional as F
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
@@ -43,7 +45,7 @@ class _Linear(nn.Module):
                      if has_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(cast_if_enabled(x), self.weight, self.bias)
 
 
 class ColumnParallelLinear(_Linear):

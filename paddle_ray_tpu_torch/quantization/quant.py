@@ -31,6 +31,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from ..amp.auto_cast import cast_if_enabled
 from ..nn.layers import Linear
 from ..ops.decode_matmul import MAX_KERNEL_ROWS, int8_stream_matmul
 from ..ops.fused import int8_mm
@@ -268,8 +269,8 @@ class QATLinear(nn.Module):
     """Linear trained through int8 rounding: weights and activations pass
     :func:`fake_quant` (straight-through) each forward, in float32, and the
     product runs in x's dtype like the Linear this wraps, whose parameters
-    it shares.  AMP is not ported, so the JAX layer's ``cast_if_enabled``
-    is the identity here; the JAX layer's ``_param_specs`` (tensor-parallel
+    it shares; inside :func:`..amp.auto_cast` x is cast to the compute
+    dtype first.  The JAX layer's ``_param_specs`` (tensor-parallel
     sharding) carry-over waits for the multi-GPU port."""
 
     def __init__(self, linear: Linear, weight_bits: int = 8,
@@ -281,6 +282,7 @@ class QATLinear(nn.Module):
         self.activation_bits = activation_bits
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = cast_if_enabled(x)
         xq = fake_quant(x.float(), self.activation_bits).to(x.dtype)
         wq = fake_quant(self.weight.float(), self.weight_bits).to(x.dtype)
         y = torch.matmul(xq, wq)

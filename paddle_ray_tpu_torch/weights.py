@@ -25,9 +25,12 @@ the JAX ``quantize_model`` / ``PTQ`` / ``QAT.convert``: each
 float layers' keys (:func:`quantized_from_jax_state_dict`).
 
 A JAX optimizer's state carries over too (:func:`optimizer_from_jax_state`):
-its step count, each slot (AdamW's ``m`` and ``v``) and the float32
-masters, each named as the JAX model names its parameters
-(:func:`to_jax_key` maps the GPT's names), so a run can resume mid-curve.
+its step count, each slot under the JAX slot names (AdamW's ``m`` and
+``v``, Momentum's ``velocity``, Adagrad's ``accum``, ...), as float32,
+bfloat16 or ``QMoment`` codes and scales (``MemoryEfficientAdamW``), and
+the float32 masters, each named as the JAX model names its parameters
+(:func:`to_jax_key` maps the GPT's names), and a ``GradScaler``'s state,
+so a run can resume mid-curve.
 """
 from __future__ import annotations
 
@@ -42,6 +45,8 @@ from .models.bert import BertConfig, BertForPretraining
 from .models.generation import _quantize_in_place
 from .models.gpt import GPT, GPTConfig
 from .models.unet import UNet, UNetConfig
+from .optimizer.memory_efficient import QMoment
+from .parallel.api import TrainState
 from .quantization.quant import quantize_model
 
 __all__ = ["to_jax_key", "to_torch_key", "optimizer_from_jax_state",
@@ -67,19 +72,47 @@ def to_jax_key(key: str) -> str:
     return _TORCH_BLOCK.sub(r"blocks.items.\1.", key)
 
 
+def _part(value, name: str):
+    """A field of a JAX ``QMoment`` / ``ScalerState``, or of a dict."""
+    return value[name] if isinstance(value, dict) else getattr(value, name)
+
+
+def _load_tensor(t: torch.Tensor, value, what: str) -> None:
+    """Copy ``value`` into ``t`` exactly: integers as they are, floats via
+    float32 (numpy has no bfloat16; a JAX bfloat16 value is exact in
+    float32)."""
+    arr = np.asarray(value)
+    arr = (arr.astype(np.int64) if not t.is_floating_point()
+           else arr.astype(np.float32))
+    if arr.shape != tuple(t.shape):
+        raise ValueError(f"shape mismatch for {what}: {arr.shape} vs "
+                         f"{tuple(t.shape)}")
+    t.copy_(torch.from_numpy(arr))
+
+
 def optimizer_from_jax_state(opt, step: int,
                              slots: Dict[str, Dict[str, np.ndarray]],
-                             master: Optional[Dict[str, np.ndarray]] = None
-                             ) -> None:
-    """Load a JAX ``OptState`` into the bound optimizer ``opt`` in place:
-    ``step``, and for each parameter its float32 slot values (``slots[slot]
-    [jax name]``, e.g. AdamW's ``m`` and ``v``) and, where ``opt`` keeps
-    one, its float32 master (``master[jax name]``), the JAX names being
-    :func:`to_jax_key` of the port's.  A missing entry or a shape that
-    differs raises."""
+                             master: Optional[Dict[str, np.ndarray]] = None,
+                             *, scaler_state=None) -> None:
+    """Load a JAX ``OptState`` into the bound optimizer ``opt`` (or the
+    optimizer of a :class:`~.parallel.api.TrainState`) in place: ``step``,
+    and for each parameter each of its slots (``slots[slot][jax name]``,
+    under the JAX slot names: a float32 or bfloat16 array, or a JAX
+    ``QMoment`` -- an object or dict with ``codes`` and ``scale`` -- for a
+    quantized slot) and, where ``opt`` keeps one, its float32 master
+    (``master[jax name]``), the JAX names being :func:`to_jax_key` of the
+    port's.  ``scaler_state`` (a JAX ``ScalerState``, an object or dict of
+    ``scale``, ``growth_tracker`` and ``bad_tracker``) goes into the
+    TrainState's scaler state.  A missing entry or a shape that differs
+    raises."""
+    ts = None
+    if isinstance(opt, TrainState):
+        ts, opt = opt, opt.opt
     group = opt.param_groups[0]
     if None in group["names"]:
         raise ValueError("the optimizer's parameters have no names")
+    # an offloaded state may still be receiving the last step's copies
+    opt.wait_state()
     with torch.no_grad():
         for p, name in zip(group["params"], group["names"]):
             key = to_jax_key(name)
@@ -91,11 +124,20 @@ def optimizer_from_jax_state(opt, step: int,
                                    "pass master=")
                 wanted.append(("master", master))
             for slot, arrays in wanted:
-                arr = np.asarray(arrays[key], dtype=np.float32)
-                if arr.shape != tuple(st[slot].shape):
-                    raise ValueError(f"shape mismatch for {slot} of {key}: "
-                                     f"{arr.shape} vs {tuple(st[slot].shape)}")
-                st[slot].copy_(torch.from_numpy(arr))
+                value, target = arrays[key], st[slot]
+                what = f"{slot} of {key}"
+                if isinstance(target, QMoment):
+                    _load_tensor(target.codes, _part(value, "codes"), what)
+                    _load_tensor(target.scale, _part(value, "scale"), what)
+                else:
+                    _load_tensor(target, value, what)
+        if scaler_state is not None:
+            if ts is None or ts.scaler_state is None:
+                raise ValueError("scaler_state needs a TrainState built "
+                                 "with a scaler")
+            for field in ("scale", "growth_tracker", "bad_tracker"):
+                _load_tensor(getattr(ts.scaler_state, field),
+                             _part(scaler_state, field), field)
     group["step"] = int(step)
 
 

@@ -251,13 +251,13 @@ def test_unported_model_options_raise(override):
         build_gpt(cfg, device="cpu")
 
 
-# grad_accum is ported (tests/test_torch_train_options.py)
+# grad_accum is ported (tests/test_torch_train_options.py), has_aux,
+# scaler and offload_opt_state too (tests/test_torch_amp.py,
+# tests/test_torch_memory_efficient.py)
 @pytest.mark.parametrize("option", [
     dict(topo=object()), dict(zero_stage=1), dict(zero_stage=3),
-    dict(has_aux=True), dict(scaler=object()),
     dict(value_and_grad_fn=lambda m, b, r: None),
-    dict(offload_opt_state=True), dict(comm_bucket_mb=25.0),
-    dict(comm_dtype="int8")])
+    dict(comm_bucket_mb=25.0), dict(comm_dtype="int8")])
 def test_unported_train_step_options_raise(option):
     m = build_gpt(GPTConfig(**SHAPE), device="cpu")
     with pytest.raises(NotImplementedError):
