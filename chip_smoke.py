@@ -34,7 +34,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    max|ref|`` ``PAGED_BF16_REL_TOL``, null page poisoned, pad rows 0), over
    pools in the model's dtype and int8 ones alike (page 32/64/128,
    head_dim 64/80/96/128, GQA 1/2/4, a long ragged decode of 1-8192 tokens
-   over many splits with a dead slot, 128-wide mixed chunks), the lengths
+   over many splits with a dead slot, 128-wide mixed chunks, speculative
+   verify steps of width 8 and 16: decode lanes of 5, 5, 3 and 1 rows
+   beside a 16-row prefill lane and a dead slot), the lengths
    handed over on the host as the engine does; each timed with CUDA
    events beside its bound and one PyTorch library call on the same
    inputs, with the split plan the launch used.
@@ -89,8 +91,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    share of their tokens equal to the 12-request run's.
 9. generate -- ``bench.py``'s two generation rows: gpt3-350m, batch 8,
    prompt 128, 256 new tokens, (a) bf16 ``generate()`` and (b)
-   ``quantize_for_decode`` + ``kv_cache_dtype="int8"``; one warm-up and two
-   timed calls each, with launch counts per call, then a short call of each
+   ``quantize_for_decode`` + ``kv_cache_dtype="int8"``; a 16-token warm-up
+   and one timed call each, with launch counts per call, then a short
+   call of each
    under ``torch.profiler``, where the int8 call's ``int8_stream_matmul``
    kernels must number its launches (one kernel a call, no second merging
    kernel).
@@ -110,6 +113,44 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    requests served greedily against greedy ``generate()`` on each prompt,
    equal up to a step where the reference's top-2 logit gap is below
    1e-3, both kernels launched at head dim 96.
+   The serving engine's other paths follow, on gpt3-350m at full width
+   (bf16, random weights from the seed), each engine's paged kernel
+   launched once a layer a step and no fault-free request ending other
+   than ``OK``.  Where two runs' tokens are compared, they must be equal
+   until they part, and they may part only at a near tie of the reference
+   run: a new token whose top-2 gap in one teacher-forced ``GPT.forward``
+   (its LM head in float32; perturbed by the request's keys if it
+   samples) is below ``SERVE_TIE`` (bf16 logits move between step shapes;
+   see there).
+10d. serve_spec -- ``bench.py:bench_serving_spec``'s workload (8 prompts
+   of 16 tokens, 128 new, ``max_batch`` 4, ``spec_k`` 4, n-gram drafts,
+   token budget 148) with speculation off and on: decode tokens/s, steps,
+   drafts, acceptance, steps shrunk; then a 4-layer float32 model, spec
+   on, against greedy ``generate()`` up to ``CHECK_TIE``.
+10e. serve_async -- ``serve``'s 12 requests with ``async_dispatch`` off and
+   on over a bf16 pool, and over an int8 pool with every other request
+   sampled: one ``_fetch`` a dispatched step, every ``_dispatch`` after
+   the first under ``torch.cuda.set_sync_debug_mode("error")`` (a
+   host-device sync in it fails the phase); decode tokens/s, p50 / p99,
+   the wall time a step over 16 steps of steady decode and (bf16) the
+   device's idle share: the device time a step of the next 16 steps under
+   ``torch.profiler`` against that wall time.
+10f. serve_prefix -- ``bench.py:bench_serving_prefix``'s workload (8
+   requests of one 512-token prefix and 16-token suffixes, 16 new tokens,
+   ``max_batch`` 4, the cache warmed by one request) with the prefix cache
+   on and off: TTFT p50 / p99, prefill tokens/s, prefix hits (above 0 on).
+10g. serve_lifecycle -- with ``sanitize=True``, sync and async: a
+   mid-flight cancel, deadlines expiring a request mid-flight and one
+   queued, ``stream=True`` queues equal to the drained output and ended by
+   ``None``, preempt-and-restore under a pool that forces a priority-1
+   request to preempt, ``park_all`` and resubmission with ``committed=``
+   on a second engine; pagesan's drain check and a pool free but for the
+   cache's pages after every drain.
+10h. serve_chaos -- a seeded ``FaultPlan.random`` over sync, async and
+   spec engines (every fault kind): requests ending ``OK`` equal to the
+   fault-free run; ``max_step_failures`` consecutive dispatch faults
+   drain with every live request ``FAILED``; a loop that stops scheduling
+   raises ``EngineStallError``.
 11. train  -- the training main path of ``bench.py``'s headline: GPT-3
    350m (bf16 parameters, flash attention, remat off, seq 1024, batch 8
    of ``(ids, ids)``), ``AdamW(1e-4)`` through ``build_train_step``, 2
@@ -995,6 +1036,17 @@ def paged_cases() -> list:
         ("mixed_gqa_q8_d96_bf16", dict(dtype=bf16, q8=True, d=96, h_kv=8,
                                        **mixed)),
     ]
+    # speculative verify steps: decode lanes of 2 to spec_k + 1 rows (the
+    # tensor-core tiles) beside a one-row decode lane, a 16-row prefill
+    # lane and a dead slot, page 64, D 64, over either pool
+    verify8 = dict(width=8, q_lens=[5, 5, 3, 1, 0],
+                   lengths=[200, 457, 731, 1000, 0])
+    verify16 = dict(width=16, q_lens=[16, 5, 5, 3, 1, 0],
+                    lengths=[528, 205, 640, 999, 1000, 0])
+    cases += [(f"verify_w{w}{'_q8' if q8 else ''}_bf16",
+               dict(dtype=bf16, q8=q8, **kw))
+              for w, kw in ((8, verify8), (16, verify16))
+              for q8 in (False, True)]
     # the serving path's headline shapes first
     return [("decode_2048_bf16", dict(dtype=bf16, **decode_2048)),
             ("decode_2048_q8_bf16", dict(dtype=bf16, q8=True, **decode_2048)),
@@ -1335,6 +1387,11 @@ def _flash_mode_cases() -> dict:
 # generate()'s cache for prompt 128 + 256 new tokens, aligned to its 256-row
 # block; the positions its decode steps attend up to
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 128, 256
+# generate()'s warm-up call (every kernel and GEMM shape of a call, short)
+# and timed calls: a whole 256-token warm-up and a second timed call cost
+# the run about 45 s, which the serving engine's phases need to stay
+# inside the run's time limit
+GEN_WARMUP, GEN_TIMED = 16, 1
 DEC_CACHE_T = 512
 DEC_POSITIONS = (0, 127, 255, 383)
 # gpt3-350m's decode linears (K, N, has bias) and the tied LM head
@@ -2296,6 +2353,670 @@ def phase_check_760m() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 10d-10h. the serving engine's lifecycle, speculation, async dispatch,
+# prefix cache and fault containment: gpt3-350m at full width, bf16
+# ---------------------------------------------------------------------------
+# near ties of served bf16 tokens: the top-2 gap of the reference's
+# teacher-forced GPT.forward logits (float32 head; perturbed scores for a
+# sampled token) below which two runs may part.  bf16 GEMMs tile by row
+# count and the served logits are bf16 (an ulp of 0.016 at this width's
+# logits), so the same token's logits move between step shapes by a few
+# hundredths; an int8 pool adds its quantization error, which GPT.forward
+# (dense bf16 attention) does not see: sync and async parted over an int8
+# pool at a GPT.forward gap of 0.275 (a sampled token) on an H100
+SERVE_TIE = {"model": 0.1, "int8": 0.5}
+# bench.py:bench_serving_spec's workload: 8 prompts of 16 tokens from
+# RandomState(3), 128 new tokens, max_batch 4, spec_k 4, n-gram drafts
+SPEC_REQUESTS, SPEC_PROMPT, SPEC_NEW, SPEC_BATCH, SPEC_K = 8, 16, 128, 4, 4
+# bench.py:bench_serving_prefix's workload: 8 requests of one 512-token
+# prefix and 16-token suffixes, 16 new tokens, max_batch 4, warmed by one
+PREFIX_REQUESTS, PREFIX_LEN, PREFIX_SUFFIX, PREFIX_NEW = 8, 512, 16, 16
+# steady decode steps timed and profiled by serve_async
+ASYNC_WINDOW = 16
+# serve_lifecycle's long request and its deadline: past ten steps of it,
+# well short of its LIFE_NEW tokens
+LIFE_NEW, LIFE_DEADLINE_S = 64, 2.0
+
+
+def _paged_counts() -> dict:
+    from paddle_ray_tpu_torch.ops.paged_attention import (
+        paged_ragged_attention)
+    return {"model": paged_ragged_attention.launches,
+            "int8": paged_ragged_attention.launches_q8}
+
+
+def _reset_paged() -> None:
+    from paddle_ray_tpu_torch.ops.paged_attention import (
+        paged_ragged_attention)
+    paged_ragged_attention.launches = paged_ragged_attention.launches_q8 = 0
+
+
+def _check_launches(name, eng, kv="model") -> int:
+    """The paged kernel (of the pool's kind, and no other) launched once a
+    layer in every dispatched step."""
+    got = _paged_counts()
+    want = eng.model.cfg.num_layers * eng.stats.mixed_steps
+    other = got["int8" if kv == "model" else "model"]
+    if got[kv] == 0 or got[kv] != want or other:
+        raise AssertionError(f"{name}: paged kernel launches {got} in "
+                             f"{eng.stats.mixed_steps} steps, want {want} "
+                             f"({kv} pool)")
+    return got[kv]
+
+
+def _sampled_scores(logits, positions, kw):
+    """``sample_tokens``'s perturbed scores for rows ``logits [T, V]`` at
+    their positions, for the request's sampling keywords."""
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.models.generation import fold_sample_keys
+    t, v = logits.shape
+    lg = logits.float() / kw["temperature"]
+    if kw.get("top_k"):
+        kth = torch.sort(lg, dim=-1, descending=True).values[
+            :, kw["top_k"] - 1:kw["top_k"]]
+        lg = torch.where(lg < kth, torch.full((), float("-inf"),
+                                              device=lg.device), lg)
+    if kw.get("top_p", 1.0) < 1.0:
+        desc = torch.sort(lg, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(desc, dim=-1), dim=-1)
+        idx = (cum < kw["top_p"]).sum(-1).clamp(max=v - 1)
+        cut = torch.gather(desc, -1, idx[:, None])
+        lg = torch.where(lg < cut, torch.full((), float("-inf"),
+                                              device=lg.device), lg)
+    seeds = torch.full((t,), kw["seed"] & 0xFFFFFFFF, dtype=torch.int64,
+                       device=lg.device)
+    return prng.gumbel(fold_sample_keys(seeds, positions), (v,)) + lg
+
+
+def _near_tie_equal(name, model, prompt, got, want, tie, kw=None) -> dict:
+    """Two runs' tokens of one request must be equal, or part only at a
+    near tie of the reference run ``want``: the first new token where they
+    differ must have a top-2 gap -- of one teacher-forced ``GPT.forward``
+    over prompt and ``want`` (its LM head in float32), perturbed by the
+    request's keys if it samples -- below ``tie``.  Reports the tokens
+    equal, the first near tie and the gap where the runs part."""
+    got, want = np.asarray(got), np.asarray(want)
+    seq = torch.as_tensor(np.concatenate([prompt, want[:-1]]),
+                          dtype=torch.long, device=model.device)[None]
+    with torch.no_grad():
+        # the blocks in the model's dtype, the LM head in float32: bf16
+        # logits (an ulp of 0.016 at this width's scale) would tie often
+        h, _ = model._hidden_states(seq)
+        hn = model.head.norm(h[0, len(prompt) - 1:]).float()
+        w = model._embed_weight()
+        logits = (hn @ w.float().T if model.head.proj is None
+                  else model.head.proj(hn.to(model.dtype)).float())
+    if kw:
+        pos = torch.arange(len(prompt), len(prompt) + len(want),
+                           device=model.device)
+        logits = _sampled_scores(logits, pos, kw)
+    top2 = torch.topk(logits, 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    ties = np.nonzero(gaps < tie)[0]
+    out = {"equal_tokens": len(want),
+           "first_tie": int(ties[0]) if len(ties) else None,
+           "gap_where_parted": None}
+    n = min(len(got), len(want))
+    diffs = np.nonzero(got[:n] != want[:n])[0]
+    if len(diffs) == 0 and len(got) == len(want):
+        return out
+    j = int(diffs[0]) if len(diffs) else n
+    gap = float(gaps[j]) if j < len(gaps) else None
+    if gap is None or gap >= tie:
+        raise AssertionError(
+            f"{name}: tokens part at new token {j} where the reference's "
+            f"top-2 gap is {gap} (a near tie is below {tie}): "
+            f"{got[max(j - 2, 0):j + 3]} vs {want[max(j - 2, 0):j + 3]}")
+    out.update(equal_tokens=j, gap_where_parted=gap)
+    return out
+
+
+def _serve_stats(eng) -> dict:
+    st = eng.stats.to_dict()
+    return {k: st[k] for k in (
+        "decode_tokens_per_s", "prefill_tokens_per_s", "p50_token_ms",
+        "p99_token_ms", "mixed_steps", "decode_tokens", "prefill_tokens",
+        "prefix_hit_tokens", "draft_tokens", "accepted_tokens",
+        "acceptance_rate", "step_failures", "retries_total",
+        "preempted_total")}
+
+
+def _all_ok(name, eng) -> None:
+    """Every request ended OK, with no step failure."""
+    bad = {r: s.status for r, s in eng.request_stats.items()
+           if s.status != "OK"}
+    if bad or eng.stats.step_failures:
+        raise AssertionError(f"{name}: statuses {bad}, step failures "
+                             f"{eng.stats.step_failures}")
+
+
+def phase_serve_spec(model) -> dict:
+    """``bench.py:bench_serving_spec``'s workload with speculation off and
+    on; tokens equal, or parted only at a near tie; then a 4-layer
+    float32 model of the same width, speculation on, against greedy
+    ``generate()`` up to ``CHECK_TIE``."""
+    from paddle_ray_tpu_torch.models import generate
+    from paddle_ray_tpu_torch.serving import ServingEngine
+    cfg = model.cfg
+    r = np.random.RandomState(3)
+    prompts = [r.randint(0, cfg.vocab_size, (SPEC_PROMPT,))
+               for _ in range(SPEC_REQUESTS)]
+    chunk = min(2 * PAGE, cfg.max_seq_len)
+    budget = SPEC_BATCH * (SPEC_K + 1) + chunk
+
+    def drive(m, spec, prompts, new):
+        eng = ServingEngine(m, page_size=PAGE, max_batch=SPEC_BATCH,
+                            prefix_cache=False, chunk_size=chunk,
+                            token_budget=budget, spec_k=SPEC_K,
+                            spec_decode="ngram" if spec else None,
+                            device=m.device)
+        _reset_paged()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, new) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _all_ok("serve_spec", eng)
+        launches = _check_launches("serve_spec", eng)
+        return eng, [out[i] for i in rids], launches, wall
+
+    runs, outs, launches = {}, {}, 0
+    for spec in (False, True):
+        name = "spec_on" if spec else "spec_off"
+        eng, outs[name], n, wall = drive(model, spec, prompts, SPEC_NEW)
+        launches += n
+        runs[name] = {**_serve_stats(eng), "launches": n,
+                      "wall_s": round(wall, 3),
+                      "executables": eng.executable_count}
+    agree = [_near_tie_equal(f"serve_spec request {i}", model, p, a, b,
+                             SERVE_TIE["model"])
+             for i, (p, a, b) in enumerate(zip(prompts, outs["spec_on"],
+                                               outs["spec_off"]))]
+    if runs["spec_on"]["draft_tokens"] == 0:
+        raise AssertionError("serve_spec: speculation drafted nothing")
+    # float32, 4 layers: spec on against greedy generate()
+    m32 = _check_model(MODEL)
+    check_prompts = prompts[:3]
+    eng32, got32, n32, _ = drive(m32, True, check_prompts, 48)
+    launches += n32
+    check = []
+    for p, got in zip(check_prompts, got32):
+        ids = torch.tensor(p, dtype=torch.long, device=m32.device)[None]
+        want = generate(m32, ids, 48)
+        full = torch.cat([ids, torch.as_tensor(
+            np.asarray(got), dtype=torch.long, device=m32.device)[None]], 1)
+        check.append(_same_tokens("serve_spec float32 spec vs generate",
+                                  m32, full, want, len(p)))
+    emit("serve_spec", model=MODEL, dtype=str(model.dtype),
+         requests=SPEC_REQUESTS, prompt=SPEC_PROMPT, new_tokens=SPEC_NEW,
+         max_batch=SPEC_BATCH, spec_k=SPEC_K, token_budget=budget,
+         chunk_size=chunk, draft="ngram", **runs,
+         steps_shrunk=round(runs["spec_off"]["mixed_steps"]
+                            / max(runs["spec_on"]["mixed_steps"], 1), 3),
+         decode_speedup=round(runs["spec_on"]["decode_tokens_per_s"]
+                              / max(runs["spec_off"]["decode_tokens_per_s"],
+                                    1e-9), 3),
+         tie=SERVE_TIE["model"], agreement=agree,
+         float32_check={"layers": 4, "tie": CHECK_TIE, "requests": check,
+                        "draft_tokens": eng32.stats.draft_tokens,
+                        "accepted_tokens": eng32.stats.accepted_tokens})
+    del m32, eng32
+    torch.cuda.empty_cache()
+    return {"model": launches, "int8": 0}
+
+
+def _instrument(eng, sync_check: bool) -> dict:
+    """Count ``_fetch`` calls and run every ``_dispatch`` after the
+    engine's first step under ``set_sync_debug_mode("error")`` (a
+    host-device sync in it raises); ``_fetch`` runs outside."""
+    import types
+    calls = {"fetch": 0, "dispatch": 0, "checked": 0}
+    dispatch, fetch = type(eng)._dispatch, type(eng)._fetch
+
+    def d(self, *a):
+        calls["dispatch"] += 1
+        if not sync_check or calls["dispatch"] == 1:
+            return dispatch(self, *a)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            calls["checked"] += 1
+
+    def f(self, inf):
+        calls["fetch"] += 1
+        return fetch(self, inf)
+
+    eng._dispatch = types.MethodType(d, eng)
+    eng._fetch = types.MethodType(f, eng)
+    return calls
+
+
+def _steady(eng) -> bool:
+    """Every prompt prefilled: the steps are decode only."""
+    return not eng.pending and not any(
+        s is not None and s.prefilling for s in eng._slots)
+
+
+def phase_serve_async(model) -> dict:
+    """``serve``'s 12 requests with ``async_dispatch`` off and on, over a
+    bf16 pool (greedy) and an int8 pool (every other request sampled):
+    tokens equal, or parted only at a near tie, one ``_fetch`` per
+    dispatched step, the dispatches after the first free of host-device
+    syncs; the wall time a step over ``ASYNC_WINDOW`` steps of steady
+    decode and, over the bf16 pool, the device's idle share: the device
+    time a step of the next ``ASYNC_WINDOW`` steps, under
+    ``torch.profiler`` (CUDA activity only), against that wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_ray_tpu_torch.serving import ServingEngine
+    cfg = model.cfg
+    workload = bench_serving_workload(cfg.max_seq_len)
+    r = np.random.RandomState(1)
+    prompts = [r.randint(0, cfg.vocab_size, (t,)) for t, _ in workload]
+    news = [n for _, n in workload]
+    results, launches = {}, {"model": 0, "int8": 0}
+    for kv in ("model", "int8"):
+        sampling = ([dict(SAMPLED, seed=1000 + i) if i % 2 else {}
+                     for i in range(len(workload))] if kv == "int8"
+                    else [{}] * len(workload))
+        kw = dict(page_size=PAGE, max_batch=MAX_BATCH, kv_cache_dtype=kv,
+                  device=model.device)
+        outs = {}
+        for mode in (False, True):
+            name = f"{'async' if mode else 'sync'}"
+            eng = ServingEngine(model, async_dispatch=mode, **kw)
+            calls = _instrument(eng, sync_check=True)
+            _reset_paged()
+            rids = [eng.submit(p, n, **s)
+                    for p, n, s in zip(prompts, news, sampling)]
+            # steady decode: ASYNC_WINDOW steps timed, then (bf16 pool)
+            # ASYNC_WINDOW more under torch.profiler for their device time
+            per_step, win, prof = [], {}, None
+            t0 = time.perf_counter()
+            while eng.pending or eng.active or eng._inflight is not None:
+                if "first" not in win and _steady(eng):
+                    torch.cuda.synchronize()
+                    win.update(first=len(per_step), t=time.perf_counter())
+                n0 = calls["fetch"]
+                eng.step()
+                per_step.append(calls["fetch"] - n0)
+                done = len(per_step) - win.get("first", len(per_step))
+                if done == ASYNC_WINDOW and "wall_ms" not in win:
+                    torch.cuda.synchronize()
+                    win["wall_ms"] = 1e3 * (time.perf_counter() - win["t"]) \
+                        / ASYNC_WINDOW
+                    if kv == "model":
+                        prof = profile(activities=[ProfilerActivity.CUDA])
+                        prof.start()
+                elif done == 2 * ASYNC_WINDOW and prof is not None:
+                    torch.cuda.synchronize()
+                    prof.stop()
+                    win["device_ms"] = sum(
+                        t for _, t, _ in kernel_rows(prof)) / 1e3 \
+                        / ASYNC_WINDOW
+                    prof = None
+            if prof is not None:            # the run ended inside the window
+                prof.stop()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out = eng.run()
+            _all_ok(f"serve_async {kv} {name}", eng)
+            launches[kv] += _check_launches(f"serve_async {kv} {name}", eng,
+                                            kv)
+            if max(per_step) != 1 or sum(per_step) != eng.stats.mixed_steps:
+                raise AssertionError(
+                    f"serve_async {kv} {name}: fetches per step "
+                    f"{per_step}, {eng.stats.mixed_steps} steps")
+            for rid, n in zip(rids, news):
+                if len(out[rid]) != n:
+                    raise AssertionError(f"serve_async: request {rid} "
+                                         f"returned {len(out[rid])} tokens")
+            outs[name] = [out[i] for i in rids]
+            res = {**_serve_stats(eng), "wall_s": round(wall, 3),
+                   "fetches": calls["fetch"],
+                   "dispatches_sync_checked": calls["checked"],
+                   "steps": len(per_step)}
+            if "wall_ms" in win:
+                res.update(window_first_step=win["first"],
+                           window_wall_ms_per_step=round(win["wall_ms"], 4))
+            if "device_ms" in win:
+                res.update(
+                    window_device_ms_per_step=round(win["device_ms"], 4),
+                    window_device_idle_share=round(
+                        1.0 - win["device_ms"] / win["wall_ms"], 4))
+            results[f"{kv}_{name}"] = res
+            del eng
+        results[f"{kv}_agreement"] = [
+            _near_tie_equal(f"serve_async {kv} request {i}", model, p, a, b,
+                            SERVE_TIE[kv], s or None)
+            for i, (p, a, b, s) in enumerate(zip(
+                prompts, outs["async"], outs["sync"], sampling))]
+    emit("serve_async", model=MODEL, dtype=str(model.dtype),
+         requests=len(workload), window_steps=ASYNC_WINDOW, tie=SERVE_TIE,
+         sampled_int8=[i for i in range(len(workload)) if i % 2],
+         sampling=SAMPLED, **results)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_prefix(model) -> dict:
+    """``bench.py:bench_serving_prefix``'s workload with the prefix cache
+    on and off (the cache warmed by one extra request): TTFT p50/p99,
+    prefill tokens/s, prefix hits (above 0 with the cache on), tokens
+    equal, or parted only at a near tie."""
+    from paddle_ray_tpu_torch.serving import ServingEngine
+    from paddle_ray_tpu_torch.serving.engine import percentile
+    cfg = model.cfg
+    r = np.random.RandomState(7)
+    prefix = r.randint(0, cfg.vocab_size, (PREFIX_LEN,))
+    warm = np.concatenate([prefix, r.randint(0, cfg.vocab_size,
+                                             (PREFIX_SUFFIX,))])
+    prompts = [np.concatenate([prefix, r.randint(0, cfg.vocab_size,
+                                                 (PREFIX_SUFFIX,))])
+               for _ in range(PREFIX_REQUESTS)]
+    runs, outs, launches = {}, {}, 0
+    for cache in (True, False):
+        name = "cache_on" if cache else "cache_off"
+        eng = ServingEngine(model, page_size=PAGE, max_batch=4,
+                            prefix_cache=cache, device=model.device)
+        _reset_paged()
+        eng.submit(warm, PREFIX_NEW)
+        eng.run()
+        rids = [eng.submit(p, PREFIX_NEW) for p in prompts]
+        out = eng.run()
+        torch.cuda.synchronize()
+        _all_ok("serve_prefix", eng)
+        launches += _check_launches("serve_prefix", eng)
+        stats = [eng.request_stats[i] for i in rids]
+        ttfts = sorted(1e3 * s.ttft_s for s in stats)
+        st = eng.stats.to_dict()
+        runs[name] = {
+            "ttft_p50_ms": round(percentile(ttfts, 0.5), 3),
+            "ttft_p99_ms": round(percentile(ttfts, 0.99), 3),
+            "prefill_tokens_per_s": st["prefill_tokens_per_s"],
+            "prefill_tokens": st["prefill_tokens"],
+            "prefix_hit_tokens": sum(s.prefix_hit_tokens for s in stats),
+            "mixed_steps": st["mixed_steps"],
+            "pool": eng.pool_stats()}
+        outs[name] = [out[i] for i in rids]
+        if cache and eng.pool.pages_in_use != eng.prefix.cached_pages:
+            raise AssertionError("serve_prefix: pages held past drain")
+    if runs["cache_on"]["prefix_hit_tokens"] <= 0:
+        raise AssertionError("serve_prefix: the cache never hit")
+    agree = [_near_tie_equal(f"serve_prefix request {i}", model, p, a, b,
+                             SERVE_TIE["model"])
+             for i, (p, a, b) in enumerate(zip(prompts, outs["cache_on"],
+                                               outs["cache_off"]))]
+    emit("serve_prefix", model=MODEL, dtype=str(model.dtype),
+         requests=PREFIX_REQUESTS, prefix_len=PREFIX_LEN,
+         suffix_len=PREFIX_SUFFIX, new_tokens=PREFIX_NEW, max_batch=4,
+         **runs, ttft_p50_speedup=round(
+             runs["cache_off"]["ttft_p50_ms"]
+             / max(runs["cache_on"]["ttft_p50_ms"], 1e-9), 3),
+         tie=SERVE_TIE["model"], agreement=agree)
+    return {"model": launches, "int8": 0}
+
+
+def _drain_queue(q) -> list:
+    out = []
+    while True:
+        t = q.get_nowait()
+        if t is None:
+            return out
+        out.append(int(t))
+
+
+def _drained(name, eng) -> None:
+    """After a drain: pagesan's drain check and books, and every page free
+    but those the prefix cache holds."""
+    eng.sanitizer.check_drain(eng.prefix.pages() if eng.prefix else ())
+    eng.sanitizer.verify_pool()
+    held = eng.prefix.cached_pages if eng.prefix else 0
+    if eng.pool.pages_in_use != held or eng._inflight is not None:
+        raise AssertionError(f"{name}: {eng.pool.pages_in_use} pages in use "
+                             f"after drain, the cache holds {held}")
+
+
+def phase_serve_lifecycle(model) -> dict:
+    """With ``sanitize=True``, sync and async: a mid-flight cancel, a
+    deadline that expires one request mid-flight and one queued, ``stream``
+    queues equal to the drained output and ended by ``None``,
+    preempt-and-restore under a pool that forces a priority-1 request to
+    preempt, and ``park_all`` with resubmission by ``committed=`` on a
+    second engine; outputs equal to uninterrupted runs or parted only at a
+    near tie; pagesan's drain check after each drain."""
+    from paddle_ray_tpu_torch.serving import ServingEngine
+    cfg = model.cfg
+    r = np.random.RandomState(SEED + 11)
+    tie = SERVE_TIE["model"]
+    p_long, p_other, p_vip, p_queued = (
+        r.randint(0, cfg.vocab_size, (n,)) for n in (100, 60, 90, 20))
+    base = dict(page_size=PAGE, sanitize=True, device=model.device)
+    launches = 0
+
+    def ref(p, n):
+        eng = ServingEngine(model, page_size=PAGE, max_batch=2,
+                            device=model.device)
+        rid = eng.submit(p, n)
+        return eng.run()[rid]
+
+    want_long, want_other = ref(p_long, LIFE_NEW), ref(p_other, 24)
+    want_vip, want_queued = ref(p_vip, 24), ref(p_queued, 8)
+    report = {}
+    for mode in (False, True):
+        tag = "async" if mode else "sync"
+        rep = {}
+        # cancel mid-flight, streams
+        _reset_paged()
+        eng = ServingEngine(model, max_batch=4, async_dispatch=mode, **base)
+        r1 = eng.submit(p_long, LIFE_NEW, stream=True)
+        r2 = eng.submit(p_other, 24, stream=True)
+        for _ in range(8):
+            eng.step()
+        if not eng.cancel(r1):
+            raise AssertionError("serve_lifecycle: cancel found nothing")
+        out = eng.run()
+        st = {i: eng.request_stats[i].status for i in (r1, r2)}
+        if (st != {r1: "CANCELLED", r2: "OK"}
+                or not 0 < len(out[r1]) < LIFE_NEW):
+            raise AssertionError(f"serve_lifecycle {tag} cancel: {st}, "
+                                 f"{len(out[r1])} tokens")
+        for rid in (r1, r2):
+            if _drain_queue(eng.stream(rid)) != [int(t) for t in out[rid]]:
+                raise AssertionError(f"serve_lifecycle {tag}: stream {rid} "
+                                     f"is not the drained output")
+        rep["cancel"] = {
+            "committed": len(out[r1]),
+            "cancelled": _near_tie_equal("cancelled prefix", model, p_long,
+                                         out[r1], want_long[:len(out[r1])],
+                                         tie),
+            "other": _near_tie_equal("co-batched", model, p_other, out[r2],
+                                     want_other, tie)}
+        _drained(f"serve_lifecycle {tag} cancel", eng)
+        launches += _check_launches("serve_lifecycle cancel", eng)
+        # deadlines: one mid-flight, one still queued behind it
+        _reset_paged()
+        eng = ServingEngine(model, max_batch=1, async_dispatch=mode, **base)
+        t_sub = time.perf_counter()
+        rd = eng.submit(p_long, LIFE_NEW, deadline_s=LIFE_DEADLINE_S)
+        rq = eng.submit(p_queued, 8, deadline_s=LIFE_DEADLINE_S)
+        for _ in range(10):
+            eng.step()
+        time.sleep(max(0.0, t_sub + LIFE_DEADLINE_S + 0.01
+                       - time.perf_counter()))
+        out = eng.run()
+        st = {i: eng.request_stats[i].status for i in (rd, rq)}
+        if (st != {rd: "DEADLINE", rq: "DEADLINE"} or len(out[rq])
+                or not 0 < len(out[rd]) < LIFE_NEW):
+            raise AssertionError(f"serve_lifecycle {tag} deadline: {st}")
+        rep["deadline"] = {
+            "committed": len(out[rd]),
+            "expired": eng.stats.deadline_expired_total,
+            "prefix": _near_tie_equal("deadline prefix", model, p_long,
+                                      out[rd], want_long[:len(out[rd])],
+                                      tie)}
+        _drained(f"serve_lifecycle {tag} deadline", eng)
+        launches += _check_launches("serve_lifecycle deadline", eng)
+        # preempt-and-restore: the pool holds the long request's worst
+        # case and one page; the priority-1 request needs more
+        _reset_paged()
+        need = -(-(len(p_long) + LIFE_NEW - 1) // PAGE)
+        eng = ServingEngine(model, max_batch=2, num_pages=1 + need + 1,
+                            async_dispatch=mode, **base)
+        ra = eng.submit(p_long, LIFE_NEW, stream=True)
+        for _ in range(24):
+            eng.step()
+        rb = eng.submit(p_vip, 24, priority=1, stream=True)
+        out = eng.run()
+        _all_ok(f"serve_lifecycle {tag} preempt", eng)
+        sa = eng.request_stats[ra]
+        if eng.stats.preempted_total < 1 or sa.preemptions < 1:
+            raise AssertionError(f"serve_lifecycle {tag}: no preemption")
+        for rid in (ra, rb):
+            if _drain_queue(eng.stream(rid)) != [int(t) for t in out[rid]]:
+                raise AssertionError(f"serve_lifecycle {tag}: stream {rid}")
+        rep["preempt"] = {
+            "preempted": eng.stats.preempted_total,
+            "restore_prefix_hit_tokens": sa.prefix_hit_tokens,
+            "restored": _near_tie_equal("restored", model, p_long, out[ra],
+                                        want_long, tie),
+            "vip": _near_tie_equal("priority 1", model, p_vip, out[rb],
+                                   want_vip, tie)}
+        _drained(f"serve_lifecycle {tag} preempt", eng)
+        launches += _check_launches("serve_lifecycle preempt", eng)
+        # park_all mid-run, resubmit on a second engine
+        _reset_paged()
+        eng = ServingEngine(model, max_batch=2, async_dispatch=mode, **base)
+        for p, n in ((p_long, LIFE_NEW), (p_other, 24), (p_queued, 8)):
+            eng.submit(p, n)
+        for _ in range(12):
+            eng.step()
+        tickets, fin = eng.park_all()
+        launches += _check_launches("serve_lifecycle park", eng)
+        _drained(f"serve_lifecycle {tag} park", eng)
+        if fin or len(tickets) != 3 or not any(t["committed"]
+                                               for t in tickets):
+            raise AssertionError(f"serve_lifecycle {tag} park: {fin}, "
+                                 f"{[len(t['committed']) for t in tickets]}")
+        _reset_paged()
+        second = ServingEngine(model, max_batch=2, async_dispatch=mode,
+                               **base)
+        rids = [second.submit(t["prompt"], t["max_new_tokens"],
+                              committed=t["committed"] or None)
+                for t in tickets]
+        out = second.run()
+        _all_ok(f"serve_lifecycle {tag} resubmitted", second)
+        launches += _check_launches("serve_lifecycle resubmit", second)
+        _drained(f"serve_lifecycle {tag} resubmitted", second)
+        wants = (want_long, want_other, want_queued)        # by rid
+        rep["park"] = {
+            "committed": [len(t["committed"]) for t in tickets],
+            "restored": [_near_tie_equal(
+                f"parked {t['rid']}", model, t["prompt"], out[rid],
+                wants[t["rid"]], tie) for t, rid in zip(tickets, rids)]}
+        report[tag] = rep
+    emit("serve_lifecycle", model=MODEL, dtype=str(model.dtype),
+         sanitize=True, tie=tie, **report)
+    torch.cuda.empty_cache()
+    return {"model": launches, "int8": 0}
+
+
+def phase_serve_chaos(model) -> dict:
+    """A seeded ``FaultPlan.random`` over sync, async and spec engines (8
+    requests, 32 new tokens, every fault kind): requests that end OK equal
+    the fault-free run (or part from it only at a near tie), the others a
+    prefix of it; ``max_step_failures`` consecutive dispatch faults drain
+    with every live request ``FAILED``; a loop that stops scheduling
+    raises ``EngineStallError``."""
+    import types
+    from paddle_ray_tpu_torch.serving import (EngineStallError, FaultEvent,
+                                              FaultPlan, ServingEngine)
+    cfg = model.cfg
+    r = np.random.RandomState(SEED + 13)
+    tie = SERVE_TIE["model"]
+    prompts = [r.randint(0, cfg.vocab_size, (int(n),))
+               for n in r.randint(16, 200, 8)]
+    new = 32
+    # a pool for the four largest worst cases: only the spikes squeeze it
+    need = sum(sorted(-(-(len(p) + new - 1) // PAGE) for p in prompts)[-4:])
+    modes = {"sync": {}, "async": dict(async_dispatch=True),
+             "spec": dict(spec_decode="ngram", spec_k=SPEC_K)}
+    report, launches = {}, 0
+    for i, (tag, extra) in enumerate(modes.items()):
+        kw = dict(page_size=PAGE, max_batch=4, sanitize=True,
+                  retry_budget=12, num_pages=1 + need, device=model.device,
+                  **extra)
+        _reset_paged()
+        clean = ServingEngine(model, **kw)
+        rids = [clean.submit(p, new) for p in prompts]
+        want = clean.run()
+        _all_ok(f"serve_chaos {tag} fault-free", clean)
+        launches += _check_launches(f"serve_chaos {tag}", clean)
+        plan = FaultPlan.random(SEED + i, steps=120, p_pool_alloc=0.05,
+                                p_dispatch=0.05, p_fetch=0.05,
+                                p_fetch_delay=0.02, p_pool_spike=0.05,
+                                delay_s=0.002)
+        _reset_paged()
+        eng = ServingEngine(model, chaos=plan, **kw)
+        rids = [eng.submit(p, new) for p in prompts]
+        got = eng.run()
+        launches += _check_launches(f"serve_chaos {tag} faults", eng)
+        _drained(f"serve_chaos {tag}", eng)
+        statuses, agree = {}, []
+        for j, (rid, p) in enumerate(zip(rids, prompts)):
+            s = eng.request_stats[rid].status
+            statuses[s] = statuses.get(s, 0) + 1
+            w = want[rid] if s == "OK" else want[rid][:len(got[rid])]
+            agree.append(_near_tie_equal(f"serve_chaos {tag} request {j}",
+                                         model, p, got[rid], w, tie))
+        if not plan.fired_log() or not eng.stats.step_failures:
+            raise AssertionError(f"serve_chaos {tag}: nothing fired")
+        report[tag] = {"fired": plan.fired_log(), "statuses": statuses,
+                       **{k: v for k, v in _serve_stats(eng).items()
+                          if k in ("mixed_steps", "step_failures",
+                                   "retries_total", "preempted_total",
+                                   "draft_tokens", "accepted_tokens")},
+                       "agreement": agree}
+    # consecutive failures drain every live request FAILED
+    _reset_paged()
+    plan = FaultPlan([FaultEvent(s, "dispatch") for s in range(3, 40)])
+    eng = ServingEngine(model, page_size=PAGE, max_batch=4, sanitize=True,
+                        chaos=plan, retry_budget=100, max_step_failures=3,
+                        device=model.device)
+    rids = [eng.submit(p, new) for p in prompts[:4]]
+    eng.run()
+    launches += _check_launches("serve_chaos drain", eng)
+    failed = [eng.request_stats[i].status for i in rids]
+    if eng.failed_drain is None or set(failed) != {"FAILED"}:
+        raise AssertionError(f"serve_chaos drain: {failed}")
+    _drained("serve_chaos drain", eng)
+    report["failed_drain"] = {"step_failures": eng.stats.step_failures,
+                              "statuses": failed}
+    # the watchdog
+    _reset_paged()
+    eng = ServingEngine(model, page_size=PAGE, max_batch=4, sanitize=True,
+                        device=model.device)
+    rid = eng.submit(prompts[0], new, stream=True)
+    eng._schedule = types.MethodType(lambda self: ([], 0, 0), eng)
+    t0 = time.perf_counter()
+    try:
+        eng.run(max_stall_s=0.2)
+    except EngineStallError as err:
+        report["watchdog"] = {"raised": type(err).__name__,
+                              "after_s": round(time.perf_counter() - t0, 3),
+                              "status": eng.request_stats[rid].status}
+    else:
+        raise AssertionError("serve_chaos: the watchdog did not trip")
+    if (report["watchdog"]["status"] != "FAILED"
+            or eng.stream(rid).get(timeout=1) is not None):
+        raise AssertionError(f"serve_chaos watchdog: {report['watchdog']}")
+    emit("serve_chaos", model=MODEL, dtype=str(model.dtype),
+         requests=len(prompts), new_tokens=new, tie=tie, **report)
+    return {"model": launches, "int8": 0}
+
+
+# ---------------------------------------------------------------------------
 # 8. the serving path with the int8 KV pool and sampled requests
 # ---------------------------------------------------------------------------
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
@@ -2417,8 +3138,9 @@ def _read(counters) -> dict:
 
 def phase_generate(model) -> dict:
     """(a) bf16 ``generate()``, (b) ``quantize_for_decode`` with the int8
-    KV cache: batch 8, prompt 128, 256 new tokens, one warm-up and two
-    timed calls; every call must launch the kernels the path runs the
+    KV cache: batch 8, prompt 128, 256 new tokens, a ``GEN_WARMUP``-token
+    warm-up and ``GEN_TIMED`` timed call; every call must launch the
+    kernels the path runs the
     expected number of times.  Then 16 new tokens of each under
     ``torch.profiler``, beside the same call unprofiled."""
     from paddle_ray_tpu_torch.models import generate, quantize_for_decode
@@ -2440,10 +3162,11 @@ def phase_generate(model) -> dict:
     for name, (m, kw, expect) in configs.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        generate(m, ids, GEN_NEW, **kw)                      # warm-up
+        # warm-up: every kernel and GEMM shape of the call, a short one
+        generate(m, ids, GEN_WARMUP, **kw)
         torch.cuda.synchronize()
         times = []
-        for _ in range(2):
+        for _ in range(GEN_TIMED):
             _reset(counters)
             t0 = time.perf_counter()
             out = generate(m, ids, GEN_NEW, **kw)
@@ -2521,14 +3244,17 @@ GEN_B1_PROMPTS = (GEN_PROMPT, 1536)
 # new tokens of each profiled batch-1 call (64 before the recipe's phases
 # joined the run; 16 keeps the run near 10 min)
 GEN_B1_PROFILED = 16
+# timed batch-1 calls a prompt (one, to keep the run inside its limit)
+GEN_B1_TIMED = 1
 
 
 def phase_generate_b1(model) -> dict:
     """One stream: bf16 ``generate()`` at batch 1, 256 new tokens from each
     prompt of ``GEN_B1_PROMPTS``.  16 (batch, head) pairs leave most SMs
     idle, so over a long cache fused decode attention splits a pair's
-    rows.  For each prompt one warm-up and two timed calls, each launching
-    the kernel once a layer and step; the split plan of every launch, as
+    rows.  For each prompt a ``GEN_WARMUP``-token warm-up and
+    ``GEN_B1_TIMED`` timed call, launching the kernel once a layer and
+    step; the split plan of every launch, as
     the wrapper takes it from ``kernel_plan``; then the kernel's device
     time in a profiled ``GEN_B1_PROFILED``-token call as planned, and in
     one with every launch held to a single split."""
@@ -2552,10 +3278,10 @@ def phase_generate_b1(model) -> dict:
     for prompt in GEN_B1_PROMPTS:
         ids = torch.from_numpy(np.random.RandomState(SEED + 5).randint(
             0, cfg.vocab_size, (1, prompt))).to("cuda")
-        generate(model, ids, GEN_NEW)                          # warm-up
+        generate(model, ids, GEN_WARMUP)                       # warm-up
         torch.cuda.synchronize()
         times = []
-        for _ in range(2):
+        for _ in range(GEN_B1_TIMED):
             _reset(counters)
             splits.clear()
             da.kernel_plan = recorded
@@ -4492,6 +5218,16 @@ def main() -> None:
     del m760
     torch.cuda.empty_cache()
     phase_check_760m()
+    g.manual_seed(SEED)
+    model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
+                      generator=g)
+    served = {"serve_spec": phase_serve_spec(model),
+              "serve_async": phase_serve_async(model),
+              "serve_prefix": phase_serve_prefix(model),
+              "serve_lifecycle": phase_serve_lifecycle(model),
+              "serve_chaos": phase_serve_chaos(model)}
+    del model
+    torch.cuda.empty_cache()
     train = phase_train()
     phase_train_check()
     train_760m = phase_train_760m()
@@ -4546,32 +5282,45 @@ def main() -> None:
         ("int8", "fused_decode_attention_q8"),
         ("int8", "int8_stream_matmul"))}
     bf16_case = kernel["decode_2048_bf16"]
+    new_paged = {kv: sum(r[kv] for r in served.values())
+                 for kv in ("model", "int8")}
+    new_note = ", ".join(f"{k} {r['model']}" for k, r in served.items()
+                         if r["model"])
+    verify = {c: kernel[c] for c in kernel if c.startswith("verify_")}
+    verify_note = "; verify steps (decode lanes of 5, 5, 3, 1 rows) " + \
+        ", ".join(f"{c} {r['ms']:.4f} ms against SDPA's "
+                  f"{r['library_ms']:.4f} (bound {r['bound_ms']:.5f})"
+                  for c, r in verify.items())
     entries = [
         _entry("paged_ragged_attention", "paged_attention.cu",
                "paged_attention.py:108", "_kernel",
-               serve["launches"] + serve_760m["launches"], bf16_case,
+               serve["launches"] + serve_760m["launches"]
+               + new_paged["model"], bf16_case,
                f"bf16 pool, bf16 q: decode, 8 slots x 2048 tokens, h=16, "
                f"d=64, page 64; split-K: {bf16_case['splits']} splits of "
                f"{bf16_case['pages_per_split']} pages; decode rows without "
                f"GQA or with GQA 2 on the CUDA cores, tiles of more pairs on "
                f"mma.sync (a 128-row chunk without GQA "
                f"{kernel['mixed_bf16']['ms']:.4f} ms against SDPA's "
-               f"{kernel['mixed_bf16']['library_ms']:.4f}); launches: serve "
-               f"(gpt3-350m, d 64) {serve['launches']} and serve_760m "
-               f"(gpt3-760m, d 96) {serve_760m['launches']}",
+               f"{kernel['mixed_bf16']['library_ms']:.4f}){verify_note}; "
+               f"launches: serve (gpt3-350m, d 64) {serve['launches']}, "
+               f"serve_760m (gpt3-760m, d 96) {serve_760m['launches']}, "
+               f"{new_note}",
                paged_err[False]),
         *flash_entries,
         _entry("paged_ragged_attention_q8", "paged_attention.cu",
                "paged_attention.py:134", "_kernel_q8",
-               serve_int8["launches"], q8_case,
+               serve_int8["launches"] + new_paged["int8"], q8_case,
                f"int8 pool, bf16 q: decode, 8 slots x 2048 tokens, h=16, "
                f"d=64, page 64; split-K: {q8_case['splits']} splits of "
                f"{q8_case['pages_per_split']} pages merged in the launch; "
                f"decode rows without GQA or with GQA 2 on the CUDA cores, "
                f"tiles of more pairs on mma.sync (a 128-row chunk without "
                f"GQA {kernel['mixed_q8_bf16']['ms']:.4f} ms against SDPA's "
-               f"{kernel['mixed_q8_bf16']['library_ms']:.4f}); library_ms is "
-               f"SDPA over the dequantised cache", paged_err[True]),
+               f"{kernel['mixed_q8_bf16']['library_ms']:.4f}); launches: "
+               f"serve_int8 {serve_int8['launches']}, serve_async "
+               f"{new_paged['int8']}; library_ms is SDPA over the "
+               f"dequantised cache", paged_err[True]),
         _entry("fused_decode_attention", "decode_attention.cu",
                "decode_attention.py:71", "_kernel_bf16",
                gen_launches["fused_decode_attention"], att["bf16_pos255"],

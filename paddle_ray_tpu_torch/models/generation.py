@@ -330,7 +330,8 @@ def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
     post-top-k distribution."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     v = logits.shape[-1]
-    neg = torch.tensor(_NEG_INF, device=logits.device)
+    # a fill, not a host copy: the serving step must not sync
+    neg = torch.full((), _NEG_INF, device=logits.device)
     lg = logits.float() / torch.clamp(temperature.float(), min=1e-6)[:, None]
     desc = torch.sort(lg, dim=-1, descending=True).values
     kth = torch.gather(desc, -1, (top_k.long() - 1).clamp(0, v - 1)[:, None])

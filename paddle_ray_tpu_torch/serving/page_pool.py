@@ -15,6 +15,11 @@ holder lets go (:meth:`PagePool.decref`).  Double free raises, and
 :meth:`free` (the strict single-owner release) raises on a page that is
 still shared.
 
+Two hooks serve the engine's checks: ``fault_injector`` (called at the
+top of :meth:`PagePool.alloc`; the chaos plan's allocator faults) and the
+instance's ``alloc`` / ``incref`` / ``decref`` / ``free``, which
+:class:`~.pagesan.PageSanitizer` wraps to keep its shadow books.
+
 Page 0 is reserved as the null page: it is never handed out, every unused
 page-table entry points at it, and masked or padded writes land in it.
 
@@ -25,7 +30,7 @@ returns.  Here the step functions update these tensors IN PLACE
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +68,10 @@ class PagePool:
         # LIFO free list: recently freed pages are re-issued first, which
         # is what the recycling tests need to prove stale KV cannot leak
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        # fault-injection hook: when set, called as fault_injector(n) at
+        # the top of alloc, before the free list moves, so an injected
+        # failure (it raises) leaves the books untouched; None is a no-op
+        self.fault_injector: Optional[Callable[[int], None]] = None
         self._rc = np.zeros((num_pages,), np.int32)     # 0 = free
         self._peak_in_use = 0
         self.total_pages_allocated = 0
@@ -91,6 +100,8 @@ class PagePool:
         return int(self._rc[int(page)])
 
     def alloc(self, n: int) -> List[int]:
+        if self.fault_injector is not None:
+            self.fault_injector(n)
         if n > len(self._free):
             raise MemoryError(
                 f"page pool exhausted: want {n} pages, {len(self._free)} "

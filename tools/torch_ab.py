@@ -44,6 +44,11 @@ other.  Each turn builds its tree's kernels and times them with its tree's
   batch 32 of 64x64x4, AdamW; 2 warm-up and 10 timed steps, then one
   profiled step): step ms, images/s, the profiled step's device ms, idle
   share and GroupNorm kernel ms (forward, backward);
+* ``serve``: the tree's own ``chip_smoke.phase_serve`` (gpt3-350m, bf16,
+  ``bench.py:bench_serving``'s 12 requests through the tree's
+  ``ServingEngine``, its default synchronous loop), twice, the second
+  run's decode and prefill tokens/s, p50 / p99 step ms, steps and wall
+  seconds (both trees' paged kernel built together first);
 * ``train``: the tree's own ``chip_smoke.phase_train`` (gpt3-350m, bf16,
   flash, batch 8 x 1024, AdamW), ``phase_bert_train`` (BERT-large, batch
   8 x 512) and ``phase_encoder_train`` (24 fused encoder layers, batch 8
@@ -70,6 +75,7 @@ with a CUDA card::
     python3 tools/torch_ab.py gn archive_check/parent
     python3 tools/torch_ab.py unet archive_check/parent
     python3 tools/torch_ab.py train archive_check/parent
+    python3 tools/torch_ab.py serve archive_check/parent
 """
 from __future__ import annotations
 
@@ -325,6 +331,33 @@ print(json.dumps({"step_ms": train["step_ms"],
 '''
 
 
+# argv: the tree
+SERVE_TURN = r'''
+import contextlib, io, json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from paddle_ray_tpu_torch.models import build_gpt
+log = io.StringIO()
+with contextlib.redirect_stdout(log):
+    chip_smoke.phase_device()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(chip_smoke.SEED)
+    model = build_gpt(chip_smoke.MODEL, device="cuda", dtype=torch.bfloat16,
+                      generator=g)
+    for _ in range(2):                  # the first run warms up
+        chip_smoke.phase_serve(model)
+rows = [r for r in map(json.loads, filter(
+    lambda l: l.startswith("{"), log.getvalue().splitlines()))
+    if r.get("phase") == "serve"]
+print(json.dumps({k: rows[-1][k] for k in (
+    "decode_tokens_per_s", "prefill_tokens_per_s", "p50_token_ms",
+    "p99_token_ms", "mixed_steps", "wall_s")}))
+'''
+
+# the kernel libraries a kind's turns load, built in both trees at once
+# before the first turn
+PREBUILD = {"serve": ["paged_attention"]}
+
 FLASH_HOST_CALLS = 500
 
 # argv: the tree, calls of the host-time loop
@@ -453,18 +486,27 @@ KINDS = {"flash": (FLASH_TURN, _flash_args), "paged": (PAGED_TURN, _paged_args),
          "dal": (DAL_TURN, _dal_args), "decode": (DECODE_TURN, _decode_args),
          "int8mm": (INT8MM_TURN, _int8mm_args),
          "stream": (STREAM_TURN, _stream_args), "gn": (GN_TURN, _gn_args),
-         "unet": (UNET_TURN, list),
+         "unet": (UNET_TURN, list), "serve": (SERVE_TURN, list),
          "train": (TRAIN_TURN, lambda: [str(FLASH_HOST_CALLS)])}
 
 
 def main() -> None:
     if len(sys.argv) != 3 or sys.argv[1] not in KINDS:
         raise SystemExit("usage: python3 tools/torch_ab.py {flash,paged,"
-                         "dal,decode,int8mm,stream,gn,unet,train} OTHER_TREE")
+                         "dal,decode,int8mm,stream,gn,unet,serve,train} "
+                         "OTHER_TREE")
     turn, make_args = KINDS[sys.argv[1]]
     trees = {"other": os.path.abspath(sys.argv[2]), "this": ROOT}
     sys.path.insert(0, ROOT)
     args = make_args()
+    names = PREBUILD.get(sys.argv[1])
+    if names:
+        builds = [subprocess.Popen(
+            [sys.executable, "-c", "import sys; from paddle_ray_tpu_torch."
+             "ops import _build; _build.build_all(sys.argv[1:])", *names],
+            cwd=tree) for tree in trees.values()]
+        if any(p.wait(timeout=900) for p in builds):
+            raise SystemExit("prebuild failed")
     for name in ("other", "this", "this", "other"):
         proc = subprocess.run([sys.executable, "-c", turn, trees[name], *args],
                               cwd=trees[name], capture_output=True,

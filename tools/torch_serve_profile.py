@@ -11,9 +11,17 @@ inflates wall time).  For each window it prints one JSON line: wall ms
 per step (unprofiled), device kernel ms per step (profiled), the device's
 idle share of the step, and the kernels with the most device time.
 
+With ``async_ab`` it instead serves the workload with the engine's
+``async_dispatch`` off and on in one process, in the order off, on, on,
+off, off, on (after one warm-up run), over a bf16 pool and over an int8
+pool with every other request sampled as ``chip_smoke.py``'s
+``serve_async`` does, and prints each run's decode tokens/s, p50 / p99
+step ms and wall seconds, then each mode's mean.
+
 Run from the repository root::
 
     python3 tools/torch_serve_profile.py
+    python3 tools/torch_serve_profile.py async_ab
 """
 from __future__ import annotations
 
@@ -37,12 +45,42 @@ from paddle_ray_tpu_torch.serving import ServingEngine  # noqa: E402
 WINDOW = 20
 
 
-def _engine(model):
-    eng = ServingEngine(model, page_size=cs.PAGE, max_batch=cs.MAX_BATCH)
+def _engine(model, **kw):
+    eng = ServingEngine(model, page_size=cs.PAGE, max_batch=cs.MAX_BATCH,
+                        **kw)
     r = np.random.RandomState(1)
-    for t0, n in cs.bench_serving_workload(model.cfg.max_seq_len):
-        eng.submit(r.randint(0, model.cfg.vocab_size, (t0,)), n)
+    sampled = kw.get("kv_cache_dtype") == "int8"
+    for i, (t0, n) in enumerate(
+            cs.bench_serving_workload(model.cfg.max_seq_len)):
+        skw = dict(cs.SAMPLED, seed=1000 + i) if sampled and i % 2 else {}
+        eng.submit(r.randint(0, model.cfg.vocab_size, (t0,)), n, **skw)
     return eng
+
+
+def async_ab(model) -> None:
+    """Sync and async dispatch over the same workload, alternated."""
+    for kv in ("model", "int8"):
+        _engine(model, kv_cache_dtype=kv).run()          # warm-up
+        runs = {False: [], True: []}
+        for mode in (False, True, True, False, False, True):
+            eng = _engine(model, kv_cache_dtype=kv, async_dispatch=mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            st = eng.stats.to_dict()
+            row = {"kv_cache_dtype": kv, "async_dispatch": mode,
+                   "wall_s": round(time.perf_counter() - t0, 3),
+                   **{k: st[k] for k in ("decode_tokens_per_s",
+                                         "p50_token_ms", "p99_token_ms",
+                                         "mixed_steps")}}
+            runs[mode].append(row)
+            print(json.dumps(row), flush=True)
+        print(json.dumps({"kv_cache_dtype": kv, "mean": {
+            ("async" if mode else "sync"): {
+                k: round(float(np.mean([r[k] for r in rs])), 3)
+                for k in ("decode_tokens_per_s", "p50_token_ms", "wall_s")}
+            for mode, rs in runs.items()}}), flush=True)
 
 
 def _windows(model, profiled: bool):
@@ -82,6 +120,10 @@ def main() -> None:
     g.manual_seed(cs.SEED)
     model = build_gpt(cs.MODEL, device="cuda", dtype=torch.bfloat16,
                       generator=g)
+    if sys.argv[1:] == ["async_ab"]:
+        async_ab(model)
+        print(smi, flush=True)
+        return
     eng = _engine(model)                # warm-up run: the whole workload
     t0 = time.perf_counter()
     eng.run()
