@@ -120,8 +120,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    until they part, and they may part only at a near tie of the reference
    run: a new token whose top-2 gap in one teacher-forced ``GPT.forward``
    (its LM head in float32; perturbed by the request's keys if it
-   samples) is below ``SERVE_TIE`` (bf16 logits move between step shapes;
-   see there).
+   samples) -- over an int8 pool, in one teacher-forced pass of
+   ``paged_mixed_step`` through a fresh int8 pool, which sees the pool's
+   quantization -- is below ``SERVE_TIE`` (bf16 logits move between step
+   shapes; see there).
 10d. serve_spec -- ``bench.py:bench_serving_spec``'s workload (8 prompts
    of 16 tokens, 128 new, ``max_batch`` 4, ``spec_k`` 4, n-gram drafts,
    token budget 148) with speculation off and on: decode tokens/s, steps,
@@ -341,6 +343,26 @@ Phases, each printing one JSON line (``{"phase": ...}``):
    a ``GradScaler``: a step with an infinite loss leaves the parameters,
    every state tensor and the step count bit-equal and halves the scale;
    the next clean step updates.
+34. train_resilient -- checkpointing and the resilient train loop:
+   gpt3-350m at full width (bf16, flash, remat off, dropout 0.1 under the
+   key ``fold_in(PRNGKey(0), step)``, batch 8 x 1024, ``AdamW(1e-4)``),
+   8 steps of ``ResilientTrainLoop(save_interval_steps=2, commit_lag=1)``
+   through ``RES_PLAN`` (a kill inside an overlapped write, so that the
+   next life resumes from a checkpoint written in the background while a
+   step updated the state in place, a loss-fetch failure, a save-IO
+   failure and a preempt), each life on a train state built afresh,
+   relaunched until the run completes: the curve assembled across the
+   three lives equal to the uninterrupted one bit for bit, each flash
+   kernel launched once a layer and the dropout kernel 98 times for every
+   step the lives executed; the save-dispatch, commit-wait and restore
+   ms, the checkpoint's bytes and directory (under the system temp
+   directory), and the step ms with and without an overlapped write,
+   beside the card's name and power limit.
+35. train_resilient_check -- 4 layers at gpt3-1.3b's width (bf16, flash,
+   dropout 0.1, batch 4 x 1024) with ``MemoryEfficientAdamW(1e-4,
+   moment_dtype="int8")`` and its state offloaded to pinned host memory,
+   one kill inside an overlapped write: the curve bit for bit, the update
+   kernel launched once a parameter for every step executed.
 
 Then the card's name and power limit (as ``nvidia-smi`` prints them), the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -350,6 +372,7 @@ Long logs (``nvcc -Xptxas -v``) go to ``chiprun_out/``.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import re
@@ -2356,15 +2379,19 @@ def phase_check_760m() -> None:
 # 10d-10h. the serving engine's lifecycle, speculation, async dispatch,
 # prefix cache and fault containment: gpt3-350m at full width, bf16
 # ---------------------------------------------------------------------------
-# near ties of served bf16 tokens: the top-2 gap of the reference's
-# teacher-forced GPT.forward logits (float32 head; perturbed scores for a
-# sampled token) below which two runs may part.  bf16 GEMMs tile by row
+# near ties of served bf16 tokens: the gap in the reference's
+# teacher-forced float32-head logits (over an int8 pool, the paged pass
+# through one, which sees the pool's quantization; for a sampled token
+# _sampled_margin) below which two runs may part.  bf16 GEMMs tile by row
 # count and the served logits are bf16 (an ulp of 0.016 at this width's
 # logits), so the same token's logits move between step shapes by a few
-# hundredths; an int8 pool adds its quantization error, which GPT.forward
-# (dense bf16 attention) does not see: sync and async parted over an int8
-# pool at a GPT.forward gap of 0.275 (a sampled token) on an H100
-SERVE_TIE = {"model": 0.1, "int8": 0.5}
+# hundredths: over an int8 pool, sync against async, by at most 0.0424
+# (1,139 sampled positions) on an NVIDIA H100 80GB HBM3, 700.00 W, as over
+# a bf16 pool, so both take 0.1
+SERVE_TIE = {"model": 0.1, "int8": 0.1}
+# the int8 tie's teacher-forced paged pass takes the engine's default
+# prefill chunk
+PAGED_TIE_CHUNK = 2 * PAGE
 # bench.py:bench_serving_spec's workload: 8 prompts of 16 tokens from
 # RandomState(3), 128 new tokens, max_batch 4, spec_k 4, n-gram drafts
 SPEC_REQUESTS, SPEC_PROMPT, SPEC_NEW, SPEC_BATCH, SPEC_K = 8, 16, 128, 4, 4
@@ -2428,44 +2455,182 @@ def _sampled_scores(logits, positions, kw):
     return prng.gumbel(fold_sample_keys(seeds, positions), (v,)) + lg
 
 
-def _near_tie_equal(name, model, prompt, got, want, tie, kw=None) -> dict:
-    """Two runs' tokens of one request must be equal, or part only at a
-    near tie of the reference run ``want``: the first new token where they
-    differ must have a top-2 gap -- of one teacher-forced ``GPT.forward``
-    over prompt and ``want`` (its LM head in float32), perturbed by the
-    request's keys if it samples -- below ``tie``.  Reports the tokens
-    equal, the first near tie and the gap where the runs part."""
-    got, want = np.asarray(got), np.asarray(want)
-    seq = torch.as_tensor(np.concatenate([prompt, want[:-1]]),
-                          dtype=torch.long, device=model.device)[None]
+class _Float32Head:
+    """``model`` with its LM head in float32: the teacher-forced paged
+    pass reads float32 logits, where bf16 ones (an ulp of 0.016 at this
+    width's scale) would tie often."""
+
+    class _Head:
+        def __init__(self, head, dtype):
+            self.norm, self.proj, self.dtype = head.norm, head.proj, dtype
+
+        def __call__(self, h, embed_weight):
+            hn = self.norm(h).float()
+            return (hn @ embed_weight.float().T if self.proj is None
+                    else self.proj(hn.to(self.dtype)).float())
+
+    def __init__(self, model):
+        self.model = model
+        self.head = self._Head(model.head, model.dtype)
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+
+def _paged_int8_logits(model, seq) -> torch.Tensor:
+    """Float32-head logits ``[len(seq), V]`` of one teacher-forced pass of
+    ``seq`` through ``paged_mixed_step`` over a fresh int8 pool (page
+    ``PAGE``, chunks of ``PAGED_TIE_CHUNK`` rows): the blocks and the
+    paged kernel as the int8-pool engine runs them, every key and value
+    through the pool's int8 quantization.  The pass's paged launches are
+    taken back out of the counters."""
+    from paddle_ray_tpu_torch.ops.paged_attention import (
+        paged_ragged_attention)
+    from paddle_ray_tpu_torch.serving import PagePool, paged_mixed_step
+    cfg, dev = model.cfg, model.device
+    saved = _paged_counts()
+    n = len(seq)
+    pool = PagePool(cfg.num_layers, 1 + -(-n // PAGE), PAGE, cfg.num_heads,
+                    cfg.head_dim, quantized=True, device=dev)
+    table = torch.tensor([pool.alloc(-(-n // PAGE))], dtype=torch.int32,
+                         device=dev)
+    toks = torch.as_tensor(np.asarray(seq), dtype=torch.long, device=dev)
+    out = []
     with torch.no_grad():
-        # the blocks in the model's dtype, the LM head in float32: bf16
-        # logits (an ulp of 0.016 at this width's scale) would tie often
-        h, _ = model._hidden_states(seq)
+        for start in range(0, n, PAGED_TIE_CHUNK):
+            end = min(n, start + PAGED_TIE_CHUNK)
+            c = end - start
+            _, logits = paged_mixed_step(
+                _Float32Head(model), toks[None, start:end],
+                torch.arange(start, end, device=dev)[None],
+                torch.tensor([c], dtype=torch.int32, device=dev),
+                torch.tensor([end], dtype=torch.int32, device=dev), table,
+                pool.arrays, host_lengths=[end], all_logits=True)
+            out.append(logits[0])
+    paged_ragged_attention.launches = saved["model"]
+    paged_ragged_attention.launches_q8 = saved["int8"]
+    return torch.cat(out)
+
+
+def _reference_logits(model, prompt, want, paged_int8=False):
+    """The float32-head logits ``[len(want), V]`` that predict each new
+    token of ``want`` in one teacher-forced pass over ``prompt`` and
+    ``want``: ``GPT.forward`` (the blocks in the model's dtype), or with
+    ``paged_int8`` the paged pass over an int8 pool
+    (:func:`_paged_int8_logits`)."""
+    seq = np.concatenate([prompt, want[:-1]])
+    if paged_int8:
+        return _paged_int8_logits(model, seq)[len(prompt) - 1:]
+    ids = torch.as_tensor(seq, dtype=torch.long, device=model.device)[None]
+    with torch.no_grad():
+        h, _ = model._hidden_states(ids)
         hn = model.head.norm(h[0, len(prompt) - 1:]).float()
         w = model._embed_weight()
-        logits = (hn @ w.float().T if model.head.proj is None
-                  else model.head.proj(hn.to(model.dtype)).float())
-    if kw:
-        pos = torch.arange(len(prompt), len(prompt) + len(want),
-                           device=model.device)
-        logits = _sampled_scores(logits, pos, kw)
-    top2 = torch.topk(logits, 2, dim=-1).values
+        return (hn @ w.float().T if model.head.proj is None
+                else model.head.proj(hn.to(model.dtype)).float())
+
+
+def _sampled_margin(row, token, position, kw, tie) -> float:
+    """How far the scores of one sampled position would have to move for
+    ``token`` to be drawn, in ``sample_tokens``'s score units (logits /
+    temperature + Gumbel noise), under a move of every scaled logit by at
+    most ``tie / 2``.  The top-k and top-p cuts keep the tokens at or
+    above a threshold value (the k-th largest; the value where the
+    nucleus's mass reaches top_p), so such a move shifts a threshold by up
+    to ``tie / 2`` and the nucleus's masses by a factor up to
+    ``e^(+-tie)``: a token that may fall on either side of a threshold is
+    possibly kept, one clear of both surely kept.  The margin is infinite
+    when ``token`` cannot be kept, else the lead of the best surely kept
+    other token over it (0 if none leads).  A top-2 gap of the scores
+    after the cuts misses a parting where the runs' cuts differ: a tail
+    token at a threshold, drawn by its Gumbel noise."""
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.models.generation import fold_sample_keys
+    lg = row.float() / kw["temperature"]
+    half = tie / 2
+    desc = torch.sort(lg, descending=True).values
+    keep_lo = keep_hi = torch.tensor(float("-inf"), device=lg.device)
+    n = lg.numel()
+    if kw.get("top_k"):
+        kth = desc[kw["top_k"] - 1]
+        keep_lo, keep_hi = kth - half, kth + half
+        n = int((lg >= kth).sum())
+    if kw.get("top_p", 1.0) < 1.0:
+        c = torch.cumsum(torch.softmax(desc[:n], -1), -1)
+        e = float(np.exp(tie))
+        lo, hi = c / (c + (1 - c) * e), c / (c + (1 - c) / e)
+        cut_few = min(int((hi < kw["top_p"]).sum()), n - 1)
+        cut_many = min(int((lo < kw["top_p"]).sum()), n - 1)
+        keep_lo = torch.maximum(keep_lo, desc[cut_many] - half)
+        keep_hi = torch.maximum(keep_hi, desc[cut_few] + half)
+    if lg[token] + half < keep_lo:
+        return float("inf")
+    seeds = torch.tensor([kw["seed"] & 0xFFFFFFFF], dtype=torch.int64,
+                         device=lg.device)
+    pos = torch.tensor([position], device=lg.device)
+    scores = prng.gumbel(fold_sample_keys(seeds, pos), (lg.numel(),))[0] + lg
+    surely = lg - half >= keep_hi
+    surely[token] = False
+    if not bool(surely.any()):
+        return 0.0
+    return max(0.0, float(scores[surely].max() - scores[token]))
+
+
+def _near_tie_equal(name, model, prompt, got, want, tie, kw=None,
+                    paged_int8=False) -> dict:
+    """Two runs' tokens of one request must be equal, or part only at a
+    near tie of the reference run ``want``: the first new token where they
+    differ must lie within ``tie`` in the reference's teacher-forced
+    logits (:func:`_reference_logits`; over an int8 pool,
+    ``paged_int8``, the paged pass through that pool) -- for a greedy
+    token a top-2 gap below ``tie``, for a sampled one a
+    :func:`_sampled_margin` below it for the token of each run.  Reports
+    the tokens equal, the first position whose top-2 gap (of the scores
+    after the cuts, if it samples) is below ``tie``, and the gap where the
+    runs part (the larger of the two margins, each also reported, if it
+    samples; and there the top-2 gap, and over an int8 pool
+    ``GPT.forward``'s top-2 gap, which does not see the pool)."""
+    got, want = np.asarray(got), np.asarray(want)
+    logits = _reference_logits(model, prompt, want, paged_int8)
+    pos = torch.arange(len(prompt), len(prompt) + len(want),
+                       device=model.device)
+    scores = _sampled_scores(logits, pos, kw) if kw else logits
+    top2 = torch.topk(scores, 2, dim=-1).values
     gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
     ties = np.nonzero(gaps < tie)[0]
     out = {"equal_tokens": len(want),
            "first_tie": int(ties[0]) if len(ties) else None,
            "gap_where_parted": None}
+    if paged_int8:
+        out["min_top2_gap"] = float(gaps.min())
     n = min(len(got), len(want))
     diffs = np.nonzero(got[:n] != want[:n])[0]
     if len(diffs) == 0 and len(got) == len(want):
         return out
     j = int(diffs[0]) if len(diffs) else n
-    gap = float(gaps[j]) if j < len(gaps) else None
+    gap = None
+    if j < len(gaps):
+        if kw:
+            # both runs' tokens are held to the teacher's scores: a run
+            # that drew a token no near tie explains fails, whichever it is
+            margins = [_sampled_margin(logits[j], int(t[j]),
+                                       len(prompt) + j, kw, tie)
+                       if j < len(t) else float("inf")
+                       for t in (got, want)]
+            out.update(margin_got=margins[0], margin_want=margins[1])
+            gap = max(margins)
+        else:
+            gap = float(gaps[j])
+        out["top2_gap_where_parted"] = float(gaps[j])
+        if paged_int8:
+            fwd = _reference_logits(model, prompt, want)
+            fs = _sampled_scores(fwd, pos, kw) if kw else fwd
+            f2 = torch.topk(fs[j], 2).values
+            out["forward_top2_gap_where_parted"] = float(f2[0] - f2[1])
     if gap is None or gap >= tie:
         raise AssertionError(
             f"{name}: tokens part at new token {j} where the reference's "
-            f"top-2 gap is {gap} (a near tie is below {tie}): "
+            f"gap is {gap} (a near tie is below {tie}): "
             f"{got[max(j - 2, 0):j + 3]} vs {want[max(j - 2, 0):j + 3]}")
     out.update(equal_tokens=j, gap_where_parted=gap)
     return out
@@ -2689,13 +2854,28 @@ def phase_serve_async(model) -> dict:
             del eng
         results[f"{kv}_agreement"] = [
             _near_tie_equal(f"serve_async {kv} request {i}", model, p, a, b,
-                            SERVE_TIE[kv], s or None)
+                            SERVE_TIE[kv], s or None,
+                            paged_int8=kv == "int8")
             for i, (p, a, b, s) in enumerate(zip(
                 prompts, outs["async"], outs["sync"], sampling))]
     emit("serve_async", model=MODEL, dtype=str(model.dtype),
          requests=len(workload), window_steps=ASYNC_WINDOW, tie=SERVE_TIE,
          sampled_int8=[i for i in range(len(workload)) if i % 2],
          sampling=SAMPLED, **results)
+    # the int8 tie's measurements: where sync and async parted over the
+    # int8 pool, the gap (for a sampled token the larger margin, each
+    # run's beside it: got is async, want sync), the paged pass's and
+    # GPT.forward's top-2 gaps there, and each request's smallest paged
+    # top-2 gap
+    emit("serve_int8_tie", tie=SERVE_TIE["int8"], partings=[
+        {"request": i, "sampled": bool(i % 2), "new_token": a["equal_tokens"],
+         **{k: a[k] for k in ("gap_where_parted", "top2_gap_where_parted",
+                              "forward_top2_gap_where_parted", "margin_got",
+                              "margin_want") if k in a}}
+        for i, a in enumerate(results["int8_agreement"])
+        if a["gap_where_parted"] is not None],
+        min_top2_gaps=[a["min_top2_gap"]
+                       for a in results["int8_agreement"]])
     torch.cuda.empty_cache()
     return launches
 
@@ -4312,6 +4492,278 @@ def phase_scaler_check() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 34-35. checkpoints and the resilient train loop: kill anywhere, resume
+# ---------------------------------------------------------------------------
+RES_STEPS, RES_INTERVAL, RES_LAG, RES_KEEP = 8, 2, 1, 2
+# train_resilient's plan: a kill at step 4, inside the overlapped write of
+# step_4 (the second life resumes from step_2, written while step 2
+# updated the state in place and committed before step 3), a loss-fetch
+# failure at step 5, the save-IO failure of step_6 and a preempt at step 7
+# (a synchronous save of step_7; the third life resumes there)
+RES_PLAN = ((4, "kill"), (5, "fetch"), (6, "save_io"),
+            (7, "preempt_signal"))
+# train_resilient_check: gpt3-1.3b's width, 4 layers, batch 4 x 1024, 6
+# steps; a kill at step 5, inside the overlapped write of step_4 (the
+# second life resumes from step_2)
+RES_CHECK_LAYERS, RES_CHECK_BATCH, RES_CHECK_STEPS = 4, 4, 6
+RES_CHECK_PLAN = ((5, "kill"),)
+
+
+def resilient_launches(layers) -> dict:
+    """Launches a step of ``train_resilient``'s model (remat off, dropout
+    on): each flash kernel once a layer, the dropout kernel 1 + 2 L times
+    forward and as often backward (the embedding's and each block's
+    attention and MLP outputs)."""
+    return {DROPOUT_KERNELS[0]: 2 * (1 + 2 * layers),
+            **{k: layers for k in FLASH_KERNELS}}
+
+
+def _checkpoint_dir(nbytes: int) -> str:
+    """A new directory for a phase's checkpoints under the system temp
+    directory (``TMPDIR``), which must have room for ``RES_KEEP`` + 2 of
+    them (the kept steps, the one being written and the one a commit
+    replaces).  A run killed before its phase ends leaves it there."""
+    import tempfile
+    base = tempfile.gettempdir()
+    free = shutil.disk_usage(base).free
+    if free < (RES_KEEP + 2) * nbytes:
+        raise AssertionError(
+            f"{base} has {free} bytes free, checkpoints need "
+            f"{(RES_KEEP + 2) * nbytes}: point TMPDIR at a larger disk")
+    return tempfile.mkdtemp(prefix="resilient-", dir=base)
+
+
+def _capture_bytes(ts) -> int:
+    from paddle_ray_tpu_torch.checkpoint.sharded import _leaf_map
+    return sum(t.numel() * t.element_size()
+               for t in _leaf_map(ts.capture()).values())
+
+
+def _timed_life(loop, times) -> None:
+    """Time ``loop``'s save dispatches, commit waits and restore, and each
+    step from its dispatch to its loss's fetch, a step tagged with whether
+    a checkpoint write was in flight."""
+    mgr, ts = loop.manager, loop.ts
+    save, wait, resume = mgr.save, mgr.wait, loop.resume
+    step, fetch = ts.step, loop._fetch_loss
+    cur = {}
+
+    def timed(key, fn, when=lambda: True):
+        def run(*a, **kw):
+            on, t0 = when(), time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if on:
+                    times[key].append(1e3 * (time.perf_counter() - t0))
+        return run
+
+    def t_step(*a, **kw):
+        cur.update(t0=time.perf_counter(),
+                   overlapped=mgr._pending_commit is not None)
+        return step(*a, **kw)
+
+    def t_fetch(*a, **kw):
+        val = fetch(*a, **kw)
+        times["step_ms_overlapped" if cur["overlapped"]
+              else "step_ms"].append(1e3 * (time.perf_counter() - cur["t0"]))
+        return val
+
+    mgr.save = timed("save_dispatch_ms", save)
+    mgr.wait = timed("commit_wait_ms", wait,
+                     lambda: mgr._pending_commit is not None)
+    loop.resume = timed("restore_ms", resume,
+                        lambda: mgr.latest_step() is not None)
+    ts.step, loop._fetch_loss = t_step, t_fetch
+
+
+def _resilient_run(name, make_ts, data_fn, n_steps, plan_events, counters,
+                   per_step) -> dict:
+    """The uninterrupted curve of ``n_steps`` (step k's key ``fold_in(
+    PRNGKey(SEED), k)``), then ``ResilientTrainLoop`` lives under the
+    fixed plan, each on a train state built afresh, relaunched after a
+    kill or a preempt until the run completes: the curve assembled across
+    lives must equal the uninterrupted one bit for bit, the lives be one
+    more than the plan's kills and preempts, every event fire, and each
+    counted kernel launch ``per_step`` times for every step the lives
+    executed.  The checkpoints go to :func:`_checkpoint_dir`, removed
+    after."""
+    import collections
+    import warnings
+    from paddle_ray_tpu_torch.core import prng
+    from paddle_ray_tpu_torch.train import (ChaosKill, ResilientTrainLoop,
+                                            TrainFaultEvent, TrainFaultPlan)
+    counters = {k: c if isinstance(c, tuple) else (c, "launches")
+                for k, c in counters.items()}
+    ts = make_ts()
+    nbytes = _capture_bytes(ts)
+    key = prng.PRNGKey(SEED)
+    ref, ref_ms = [], []
+    for s in range(n_steps):
+        t0 = time.perf_counter()
+        ref.append(float(ts.step(data_fn(s), prng.fold_in(key, s))))
+        ref_ms.append(1e3 * (time.perf_counter() - t0))
+    del ts
+    torch.cuda.empty_cache()
+    directory = _checkpoint_dir(nbytes)
+    plan = TrainFaultPlan([TrainFaultEvent(k, kind)
+                           for k, kind in plan_events])
+    times = collections.defaultdict(list)
+    curve, lives = {}, []
+    _reset(counters)
+    try:
+        while True:
+            if len(lives) > 2 * len(plan_events) + 1:
+                raise AssertionError(f"{name}: relaunches did not end")
+            ts = make_ts()
+            loop = ResilientTrainLoop(
+                ts, data_fn, directory, seed=SEED, rng=True,
+                save_interval_steps=RES_INTERVAL, max_to_keep=RES_KEEP,
+                commit_lag=RES_LAG, chaos=plan)
+            _timed_life(loop, times)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                try:
+                    status = loop.run(n_steps).status
+                except ChaosKill:
+                    status = "killed"
+            curve.update(loop.step_losses)
+            lives.append({"status": status,
+                          "steps": sorted(loop.step_losses),
+                          "committed": loop.manager.all_steps()})
+            # the timing wrappers and the loop's chaos hook are cycles:
+            # collect them, so that a life's state is freed before the next
+            del loop, ts
+            gc.collect()
+            torch.cuda.empty_cache()
+            if status == "complete":
+                break
+        launches = _read(counters)
+        ckpt_bytes = sum(
+            os.path.getsize(os.path.join(root, f))
+            for root, _, files in os.walk(os.path.join(
+                directory, f"step_{n_steps}")) for f in files)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    executed = sum(len(life["steps"]) for life in lives)
+    relaunches = sum(1 for _, kind in plan_events
+                     if kind in ("kill", "preempt_signal"))
+    if sorted(curve) != list(range(n_steps)) or any(
+            curve[s] != ref[s] for s in range(n_steps)):
+        raise AssertionError(
+            f"{name}: the curve across lives is not the uninterrupted one: "
+            f"{[curve.get(s) for s in range(n_steps)]} vs {ref}")
+    if len(lives) != relaunches + 1 or \
+            sorted(plan.fired_log()) != sorted(plan_events):
+        raise AssertionError(f"{name}: lives {lives}, fired "
+                             f"{plan.fired_log()} of {plan_events}")
+    for k, n in launches.items():
+        if n != per_step[k] * executed:
+            raise AssertionError(f"{name}: {k} launched {n} times in "
+                                 f"{executed} steps, want {per_step[k]} a "
+                                 f"step")
+    return {"losses": ref, "lives": lives, "fired": plan.fired_log(),
+            "executed_steps": executed, "launches": launches,
+            "checkpoint_dir": os.path.dirname(directory),
+            "checkpoint_bytes": ckpt_bytes, "capture_bytes": nbytes,
+            "step_ms_uninterrupted": ref_ms,
+            **{k: v for k, v in times.items()}}
+
+
+def phase_train_resilient(smi) -> dict:
+    """gpt3-350m at full width (bf16, flash, remat off, dropout 0.1, batch
+    8 x 1024, ``AdamW(1e-4)``) under ``ResilientTrainLoop`` for
+    ``RES_STEPS`` steps, saving every ``RES_INTERVAL`` with ``commit_lag``
+    ``RES_LAG``, through ``RES_PLAN``'s kill, save-IO, fetch and preempt
+    faults (:func:`_resilient_run`); the save-dispatch, commit-wait and
+    restore times, the checkpoint's bytes and the step time with and
+    without an overlapped write, beside the card's name and power
+    limit."""
+    from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
+    from paddle_ray_tpu_torch.models.gpt import gpt_config
+    from paddle_ray_tpu_torch.optimizer import AdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    g = torch.Generator(device="cuda")
+    cfg = gpt_config(MODEL)
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (RES_STEPS, TRAIN_BATCH, TRAIN_SEQ))).to("cuda")
+
+    def make_ts():
+        g.manual_seed(SEED)
+        model = build_gpt(MODEL, device="cuda", dtype=torch.bfloat16,
+                          attn_impl="flash", remat=False, dropout=0.1,
+                          max_seq_len=TRAIN_SEQ, generator=g)
+        return build_train_step(model, AdamW(TRAIN_LR), gpt_loss_fn)
+
+    out = _resilient_run("train_resilient", make_ts,
+                         lambda s: (ids[s], ids[s]), RES_STEPS, RES_PLAN,
+                         _recipe_counters(),
+                         resilient_launches(cfg.num_layers))
+    emit("train_resilient", card=smi, model=MODEL, dtype="bfloat16",
+         attn_impl="flash", dropout=0.1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         optimizer=f"AdamW({TRAIN_LR})", steps=RES_STEPS,
+         save_interval_steps=RES_INTERVAL, commit_lag=RES_LAG,
+         max_to_keep=RES_KEEP, plan=RES_PLAN, curve_bit_equal=True,
+         cublas_workspace_config=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+         **out)
+    del ids
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_resilient_check(smi) -> dict:
+    """A ``RES_CHECK_LAYERS``-layer model at gpt3-1.3b's width (bf16,
+    flash, remat off, dropout 0.1, batch 4 x 1024) with
+    ``MemoryEfficientAdamW(1e-4, moment_dtype="int8")`` and its state
+    offloaded to pinned host memory, under ``ResilientTrainLoop`` through
+    one kill inside an overlapped write: the curve bit for bit, the update
+    kernel launched once a parameter for every step executed (the codes,
+    scales and offloaded state through a restore)."""
+    from paddle_ray_tpu_torch.models import build_gpt, gpt_loss_fn
+    from paddle_ray_tpu_torch.models.gpt import gpt_config
+    from paddle_ray_tpu_torch.ops.me_adamw import me_adamw_update
+    from paddle_ray_tpu_torch.optimizer import MemoryEfficientAdamW
+    from paddle_ray_tpu_torch.parallel import build_train_step
+    g = torch.Generator(device="cuda")
+    over = dict(num_layers=RES_CHECK_LAYERS, attn_impl="flash", remat=False,
+                dropout=0.1, max_seq_len=TRAIN_SEQ)
+    cfg = gpt_config(M1P3B, **over)
+    ids = torch.from_numpy(np.random.RandomState(SEED + 6).randint(
+        0, cfg.vocab_size, (RES_CHECK_STEPS, RES_CHECK_BATCH,
+                            TRAIN_SEQ))).to("cuda")
+    # the update kernel: once a parameter a step
+    per_step = dict(resilient_launches(cfg.num_layers))
+
+    def make_ts():
+        g.manual_seed(SEED + 6)
+        model = build_gpt(M1P3B, device="cuda", dtype=torch.bfloat16,
+                          generator=g, **over)
+        per_step[ME_KERNELS[0]] = len(list(model.parameters()))
+        ts = build_train_step(
+            model, MemoryEfficientAdamW(M1P3B_LR, moment_dtype="int8"),
+            gpt_loss_fn, offload_opt_state=True)
+        if not ts.opt.offloaded:
+            raise AssertionError("train_resilient_check: state not "
+                                 "offloaded")
+        return ts
+
+    counters = {**_recipe_counters(), ME_KERNELS[0]: me_adamw_update}
+    out = _resilient_run("train_resilient_check", make_ts,
+                         lambda s: (ids[s], ids[s]), RES_CHECK_STEPS,
+                         RES_CHECK_PLAN, counters, per_step)
+    emit("train_resilient_check", card=smi, model=M1P3B,
+         layers=RES_CHECK_LAYERS, dtype="bfloat16", dropout=0.1,
+         batch=RES_CHECK_BATCH, seq=TRAIN_SEQ,
+         optimizer=f"MemoryEfficientAdamW({M1P3B_LR}, moment_dtype=int8), "
+                   f"offload_opt_state=True", steps=RES_CHECK_STEPS,
+         save_interval_steps=RES_INTERVAL, commit_lag=RES_LAG,
+         plan=RES_CHECK_PLAN, curve_bit_equal=True, **out)
+    del ids
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 12. correctness of the training path on the card
 # ---------------------------------------------------------------------------
 def phase_train_check() -> None:
@@ -5240,6 +5692,8 @@ def main() -> None:
     phase_amp_train()
     phase_optimizers_check()
     phase_scaler_check()
+    resilient = phase_train_resilient(smi)
+    resilient_check = phase_train_resilient_check(smi)
     unet = phase_unet_train()
     phase_unet_check()
     bert = phase_bert_train()
@@ -5252,13 +5706,15 @@ def main() -> None:
     phase_int8_one_call("late")
     train_case = flash["train_bf16"]
     runs = {"gpt": train, "gpt760m": train_760m, "bert": bert,
-            "encoder": enc, "recipe": recipe, "seq8k": seq8k}
+            "encoder": enc, "recipe": recipe, "seq8k": seq8k,
+            "resilient": resilient, "resilient_check": resilient_check}
     flash_entries = [_entry(
         name, "flash_attention.cu", f"flash_attention.py:{line}", body,
         sum(r["launches"][name] for r in runs.values()), train_case[kind],
         "bf16 causal, B 8, S 1024, H 16, D 64 (launches: gpt3-350m, "
         "gpt3-760m, BERT-large, the fused encoder, the pretraining recipe "
-        "and seq-8192 training runs, "
+        "and seq-8192 training runs, and the resilient loop's lives at "
+        "gpt3-350m and at gpt3-1.3b's width, "
         + ", ".join(f"{r['launches'][name]}" for r in runs.values())
         + "); non-causal B 8, S 512 with segment ids {:.4f} ms, a [B,1,1,S] "
         "mask-bias {:.4f} ms, a full bias{} {:.4f} ms".format(
@@ -5418,7 +5874,8 @@ def main() -> None:
         "replaces": "paddle_ray_tpu/nn/functional.py:123",
         "tpu_kernel": None,
         "launches": sum(r["launches"][DROPOUT_KERNELS[0]]
-                        for r in (recipe, seq8k)),
+                        for r in (recipe, seq8k, resilient,
+                                  resilient_check)),
         "max_abs_err": max(r["max_abs_err"] for r in drop.values()),
         **{k: drop_case[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")},
@@ -5430,7 +5887,11 @@ def main() -> None:
             f"same kernel on dy); bound by {DROPOUT_INT_OPS} int32 operations "
             f"an element at {INT32_OPS_PER_S / 1e12:.1f} T/s; launches: "
             f"train_recipe {recipe['launches'][DROPOUT_KERNELS[0]]}, "
-            f"train_seq8k {seq8k['launches'][DROPOUT_KERNELS[0]]}; "
+            f"train_seq8k {seq8k['launches'][DROPOUT_KERNELS[0]]}, "
+            f"train_resilient "
+            f"{resilient['launches'][DROPOUT_KERNELS[0]]}, "
+            f"train_resilient_check "
+            f"{resilient_check['launches'][DROPOUT_KERNELS[0]]}; "
             f"library_ms is torch.nn.functional.dropout, the same work with "
             f"other random bits (Philox)")})
     me_step, prof = me["step"], m1p3b["profile"]
@@ -5440,7 +5901,8 @@ def main() -> None:
         "replaces": "paddle_ray_tpu/optimizer/memory_efficient.py:101",
         "tpu_kernel": None,
         "launches": (m1p3b["launches"][ME_KERNELS[0]]
-                     + offload["launches"][ME_KERNELS[0]]),
+                     + offload["launches"][ME_KERNELS[0]]
+                     + resilient_check["launches"][ME_KERNELS[0]]),
         **{k: me_step[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
         "shape": (
@@ -5460,7 +5922,8 @@ def main() -> None:
             f"the same sizes, a reference point only, "
             f"{me_step['fused_adamw_ms']:.4f} ms; launches: train_1p3b "
             f"{m1p3b['launches'][ME_KERNELS[0]]}, train_1p3b_offload "
-            f"{offload['launches'][ME_KERNELS[0]]}")})
+            f"{offload['launches'][ME_KERNELS[0]]}, train_resilient_check "
+            f"{resilient_check['launches'][ME_KERNELS[0]]}")})
     print(smi, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

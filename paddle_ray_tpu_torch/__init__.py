@@ -14,11 +14,16 @@ encoder layers with fused dropout-add-LayerNorm kernels
 (``ops/csrc/fused.cu``) and the flash kernels' bias, mask and segment
 ids; a later one trains gpt3-1.3b with ``MemoryEfficientAdamW``, whose
 update is one kernel a parameter (``ops/csrc/me_adamw.cu``), beside the
-other optimizers, AMP (:mod:`.amp`) and optimizer-state offload.  Entry
+other optimizers, AMP (:mod:`.amp`) and optimizer-state offload; a later
+one saves and resumes training runs bit for bit (:mod:`.checkpoint`,
+:class:`.train.ResilientTrainLoop`).  Entry
 points run on the CUDA device unless the caller passes ``device="cpu"``,
 where every kernel's plain PyTorch version runs instead.
 """
+from . import checkpoint, train
+from .checkpoint import load, save
 from .core.rng import seed
 from .device import default_device, resolve_device
 
-__all__ = ["default_device", "resolve_device", "seed"]
+__all__ = ["checkpoint", "default_device", "load", "resolve_device", "save",
+           "seed", "train"]

@@ -13,12 +13,15 @@ buffers from the model the loss function returns; a ``scaler``
 gradients and skips the update of a step whose gradients are not finite;
 ``offload_opt_state`` keeps the optimizer's state in pinned host memory
 between steps (:meth:`..optimizer.Optimizer.offload_state`).
+:meth:`TrainState.capture` is the whole state as a checkpoint tree, and
+:meth:`TrainState.restore` loads one (:mod:`..checkpoint`).
 Multi-device layouts (data, tensor, sequence or pipeline parallel, ZeRO)
 and bucketed gradient communication are not ported yet and raise
 :class:`NotImplementedError`.
 """
 from __future__ import annotations
 
+import zlib
 from typing import Any, Callable, Optional
 
 import torch
@@ -28,7 +31,11 @@ from ..core import prng
 from ..core import rng as _rng
 from ..optimizer.optimizer import Optimizer
 
-__all__ = ["TrainState", "build_train_step"]
+__all__ = ["TrainState", "build_train_step", "TRAIN_STATE_SCHEMA"]
+
+# the version of TrainState.capture()'s tree: bumped when the tree gains or
+# renames keys, so that a restore can tell a foreign dump from a torn one
+TRAIN_STATE_SCHEMA = 1
 
 
 def _map(fn, tree):
@@ -70,6 +77,9 @@ class TrainState:
                              else scaler.init_state(self._device()))
         self.last_loss: Optional[torch.Tensor] = None
         self.step_count = 0
+        # events the next in-place write of the state waits for (a
+        # checkpoint's snapshot copies, fence_writes)
+        self._fences: list = []
 
     def _device(self) -> Optional[torch.device]:
         p = next(self.model.parameters(), None)
@@ -97,6 +107,7 @@ class TrainState:
         else:
             loss.backward()
         if updated is not None and updated is not self.model:
+            self._wait_fences()
             mine = dict(self.model.named_buffers())
             with torch.no_grad():
                 for name, b in updated.named_buffers():
@@ -152,6 +163,7 @@ class TrainState:
                         p.grad.div_(divs[dt])
             loss = torch.stack(losses).sum() / torch.full(
                 (), n, dtype=torch.float32, device=dev)
+        self._wait_fences()
         if self.scaler is None:
             self.opt.step()
         else:
@@ -181,6 +193,91 @@ class TrainState:
         (``lr.ReduceOnPlateau``): ``sched.step(metric)``, then
         ``ts.set_lr(sched.current_lr)``, as with the JAX step."""
         self.opt.set_lr(value)
+
+    # -- whole-state checkpoints ------------------------------------------
+    def fence_writes(self, event) -> None:
+        """Hold the next in-place write of the parameters, the buffers or
+        the optimizer's state behind ``event`` (a CUDA event recorded
+        after a checkpoint's snapshot copies): the current stream waits
+        for it just before the step's first such write, so the step's
+        forward and backward overlap the copies."""
+        self._fences.append(event)
+
+    def _wait_fences(self) -> None:
+        while self._fences:
+            torch.cuda.current_stream(self._device()).wait_event(
+                self._fences.pop())
+
+    def schedule_fingerprint(self) -> int:
+        """The CRC32 of the communication schedule (the JAX
+        ``TrainState.schedule_fingerprint``): the port runs on one device
+        with no gradient-communication or gather schedule, whose
+        fingerprint is that of ``comm:none|gather:none``."""
+        return zlib.crc32(b"comm:none|gather:none") & 0xFFFFFFFF
+
+    def capture(self) -> dict:
+        """The whole state as a checkpoint tree (the JAX
+        ``TrainState.capture``): ``model``, the state dict's tensors (the
+        live ones, detached); ``opt``, the optimizer's step count, every
+        slot (``QMoment`` codes and scales as ``{"codes", "scale"}``) and
+        float32 master, keyed by parameter name, the live learning rate of
+        a host-driven schedule and that schedule's ``state_dict()``;
+        ``scaler``, the scaler's state, with a scaler; ``step``,
+        ``schema`` and ``fingerprint``.  The array leaves are the live
+        tensors, so a checkpoint writer must copy them before the next
+        step (:mod:`..checkpoint.sharded` does; ``fence_writes``); an
+        offloaded optimizer's pending copies back to the host are waited
+        for first.  Restore with :meth:`restore`."""
+        opt = self.opt
+        opt.wait_state()
+        group = opt.param_groups[0]
+        names = [str(i) if n is None else n
+                 for i, n in enumerate(group["names"])]
+        slots = {s: {} for s in opt.slot_names}
+        master = {}
+        for p, name in zip(group["params"], names):
+            st = opt.state[p]
+            for s in opt.slot_names:
+                x = st[s]
+                slots[s][name] = (x if isinstance(x, torch.Tensor) else
+                                  {"codes": x.codes, "scale": x.scale})
+            if "master" in st:
+                master[name] = st["master"]
+        opt_tree = {"step": torch.tensor(group["step"], dtype=torch.int64),
+                    "slots": slots, "master": master,
+                    "lr_value": opt.lr_value}
+        sched_state = getattr(opt.lr, "state_dict", None)
+        if sched_state is not None:
+            opt_tree["lr_sched"] = sched_state()
+        tree = {"model": self.model.state_dict(), "opt": opt_tree,
+                "step": torch.tensor(self.step_count, dtype=torch.int64),
+                "schema": torch.tensor(TRAIN_STATE_SCHEMA,
+                                       dtype=torch.int64),
+                "fingerprint": torch.tensor(self.schedule_fingerprint(),
+                                            dtype=torch.int64)}
+        if self.scaler_state is not None:
+            tree["scaler"] = {f: getattr(self.scaler_state, f) for f in (
+                "scale", "growth_tracker", "bad_tracker")}
+        return tree
+
+    def _restore_host_state(self, cap: dict, lr_value=None,
+                            lr_sched=None) -> None:
+        """After a restore has copied a checkpoint into the tensors of
+        ``cap`` (a :meth:`capture` of this state): the optimizer's step
+        count, its live learning rate and its schedule's state, which live
+        on the host."""
+        self.opt.param_groups[0]["step"] = int(cap["opt"]["step"])
+        if lr_value is not None:
+            self.opt.set_lr(lr_value)
+        if lr_sched is not None:
+            self.opt.lr.set_state_dict(lr_sched)
+
+    def restore(self, path: str) -> "TrainState":
+        """Restore this state in place from a :meth:`capture` (or legacy
+        ``{"model", "opt"}``) dump at ``path``: :func:`..checkpoint.
+        restore_train_state`."""
+        from ..checkpoint.sharded import restore_train_state
+        return restore_train_state(path, self)
 
 
 def build_train_step(model: nn.Module, opt: Optimizer,

@@ -60,12 +60,14 @@ What the engine does besides (each held to the JAX engine):
   spikes; a contained failure discards the in-flight step(s) whole, rolls
   every lane back and retries under a per-request ledger
   (``retry_budget``), and ``max_step_failures`` consecutive failures
-  drain the engine with every live request ``FAILED``.  Only the
-  injected :class:`~.chaos.ChaosError` and the pool's ``MemoryError`` are
-  contained: a CUDA error (a kernel wrapper's launch failure among them)
-  propagates, because a sticky CUDA error leaves the context unusable.
-  ``run(max_stall_s=)`` raises :class:`~.chaos.EngineStallError` on a
-  loop that stops making progress.
+  drain the engine with every live request ``FAILED``.  As in the JAX
+  engine, the dispatch and the fetch contain every exception but a
+  :class:`~.pagesan.PageSanError` (a device OOM, a kernel's launch error),
+  a placement only the injected :class:`~.chaos.ChaosError` and the
+  pool's ``MemoryError``; a CUDA error that leaves the context unusable
+  fails every retry and ends in the drain.  ``run(max_stall_s=)`` raises
+  :class:`~.chaos.EngineStallError` on a loop that stops making
+  progress.
 * **pagesan** (``sanitize=True``): :class:`~.pagesan.PageSanitizer` shadow
   books of every page the scheduler touches, settled per step.
 
@@ -102,9 +104,13 @@ __all__ = ["RequestStatus", "ServingEngine", "ServingStats", "RequestStats",
            "paged_decode_step", "paged_mixed_step", "paged_prefill"]
 
 _MIN_CHUNK_BUCKET = 8
-# the failures step-failure containment takes (the JAX engine's retry
-# ledger): the chaos plan's injected faults and the pool's exhaustion.
-# Anything else -- a CUDA error above all -- propagates.
+# the failures a placement contains (the JAX engine's): the chaos plan's
+# injected faults and the pool's exhaustion.  The dispatch and the fetch
+# contain every Exception but a PageSanError, as the JAX engine does: a
+# device OOM (torch.OutOfMemoryError) or a kernel's launch error becomes a
+# discarded step whose rows retry.  A CUDA error that leaves the context
+# unusable fails again on every retry, so it ends in the FAILED drain after
+# max_step_failures consecutive discards, never in a hang.
 _CONTAINED = (ChaosError, MemoryError)
 
 
@@ -1231,7 +1237,7 @@ class ServingEngine:
                                   if plan else None)
             except PageSanError:
                 raise
-            except _CONTAINED as err:
+            except Exception as err:  # noqa: BLE001 -- containment zone
                 # _dispatch restored the pre-dispatch host state; keep
                 # prev (independent of the failed successor)
                 self._inflight = None
@@ -1256,7 +1262,7 @@ class ServingEngine:
             self._reconcile(inf, finished)
         except PageSanError:
             raise
-        except _CONTAINED as err:
+        except Exception as err:  # noqa: BLE001 -- containment zone
             if self._phase != "fetch":
                 raise
             self._abort_unreconciled(inf, err, finished)

@@ -30,7 +30,8 @@ its step count, each slot under the JAX slot names (AdamW's ``m`` and
 bfloat16 or ``QMoment`` codes and scales (``MemoryEfficientAdamW``), and
 the float32 masters, each named as the JAX model names its parameters
 (:func:`to_jax_key` maps the GPT's names), and a ``GradScaler``'s state,
-so a run can resume mid-curve.
+so a run can resume mid-curve; :func:`train_state_from_jax_capture` takes
+a whole JAX ``TrainState.capture()`` into a port train state.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from .parallel.api import TrainState
 from .quantization.quant import quantize_model
 
 __all__ = ["to_jax_key", "to_torch_key", "optimizer_from_jax_state",
+           "train_state_from_jax_capture",
            "gpt_from_jax_state_dict", "gpt_to_jax_state_dict",
            "bert_from_jax_state_dict", "bert_to_jax_state_dict",
            "unet_from_jax_state_dict", "unet_to_jax_state_dict",
@@ -139,6 +141,51 @@ def optimizer_from_jax_state(opt, step: int,
                 _load_tensor(getattr(ts.scaler_state, field),
                              _part(scaler_state, field), field)
     group["step"] = int(step)
+
+
+def _at(tree, path: str):
+    """The leaf of a JAX module tree at the dotted ``path`` its
+    ``named_parameters`` gives (attributes, list items by index)."""
+    for part in path.split("."):
+        tree = (tree[int(part)] if isinstance(tree, (list, tuple))
+                else getattr(tree, part))
+    return tree
+
+
+def train_state_from_jax_capture(ts: TrainState, tree) -> TrainState:
+    """Load a JAX ``TrainState.capture()`` (on the host, as
+    ``jax.device_get`` returns it) into the port's GPT train state ``ts``
+    in place: the model's state dict (:func:`gpt_from_jax_state_dict`'s
+    renaming), the optimizer's step count, slots and masters and a
+    ``GradScaler``'s state (:func:`optimizer_from_jax_state`), a
+    host-driven schedule's live learning rate, and the step counter.  A
+    run the JAX package began goes on in the port.  A capture with
+    quantized-communication state (a multi-device feature) raises."""
+    model, bundle = tree["model"], tree["opt"]
+    scaler_state = None
+    # the JAX bundle wraps the OptState in (inner, ScalerState | CommState)
+    # pairs
+    while isinstance(bundle, tuple) and len(bundle) == 2:
+        bundle, wrapper = bundle
+        if hasattr(wrapper, "residual"):
+            raise NotImplementedError("the capture holds quantized-"
+                                      "communication state, which the port "
+                                      "does not run")
+        scaler_state = wrapper
+    given = {to_torch_key(k): v for k, v in model.state_dict().items()}
+    names = [name for name, _ in model.named_parameters()]
+    slots = {s: {n: _at(bundle.slots[s], n) for n in names}
+             for s in bundle.slots}
+    master = (None if bundle.master is None
+              else {n: _at(bundle.master, n) for n in names})
+    with torch.no_grad():
+        _copy_state(ts.model, given, type(ts.model).__name__)
+    optimizer_from_jax_state(ts, int(np.asarray(bundle.step)), slots, master,
+                             scaler_state=scaler_state)
+    if getattr(bundle, "lr_value", None) is not None:
+        ts.opt.set_lr(float(np.asarray(bundle.lr_value)))
+    ts.step_count = int(np.asarray(tree["step"]))
+    return ts
 
 
 def gpt_from_jax_state_dict(cfg: GPTConfig, state: Dict[str, np.ndarray], *,

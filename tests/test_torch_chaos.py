@@ -14,10 +14,11 @@ async / spec, sampled and prioritised workloads with late priority-5
 arrivals and mid-flight cancels on a tight pool, port and JAX engine under
 the same plan: equal fired events, tokens, statuses, counters and books,
 shadow books equal to the pool's at every reconcile, and every ``OK``
-request equal to the fault-free run.  Unlike the JAX engine, the port
-contains only the injected ``ChaosError`` and the pool's ``MemoryError``:
-a CUDA error (a kernel wrapper's launch failure) propagates, uncounted.
-Every engine runs ``sanitize=True``."""
+request equal to the fault-free run.  As in the JAX engine, a plain
+``RuntimeError`` (a device OOM, a kernel wrapper's launch failure) raised
+in the dispatch or the fetch is contained like an injected fault, with
+the JAX engine's statuses, retries and tokens, and one that persists ends
+in the ``FAILED`` drain.  Every engine runs ``sanitize=True``."""
 import types
 
 import numpy as np
@@ -232,18 +233,73 @@ def test_chaos_none_equals_empty_plan():
     assert e1.stats.step_failures == 0 and e1.chaos_fired == 0
 
 
+def _raise_on_calls(owner, name, calls, err, monkeypatch=None):
+    """Make ``owner.<name>`` raise ``err`` on the given (1-based) calls and
+    run as it is on the others; returns the list of calls that raised."""
+    orig = getattr(owner, name)
+    seen, raised = [0], []
+
+    def stub(*a, **kw):
+        seen[0] += 1
+        if seen[0] in calls:
+            raised.append(seen[0])
+            raise err
+        return orig(*a, **kw)
+    if monkeypatch is None:
+        setattr(owner, name, stub)
+    else:
+        monkeypatch.setattr(owner, name, stub)
+    return raised
+
+
+@pytest.mark.parametrize("phase", ["dispatch", "fetch"])
+def test_plain_runtime_error_contained_like_jax(phase, monkeypatch):
+    """A plain ``RuntimeError`` (what a device OOM or a kernel's launch
+    failure raises) from a stubbed dispatch -- the engine module's step
+    function, called inside ``_dispatch`` -- then from a stubbed fetch, in
+    both engines under the same schedule: the step is discarded and its
+    rows retried, with the JAX engine's statuses, retry counts and
+    tokens, equal to the fault-free run."""
+    import paddle_ray_tpu.serving.engine as jax_engine_mod
+    jm, tm = models(223)
+    prompts = [R.randint(0, 97, (n,)) for n in (5, 9, 4)]
+    sub = [(p, 6, {}) for p in prompts]
+    kw = dict(page_size=PAGE, max_batch=3, retry_budget=10,
+              async_dispatch=phase == "fetch")
+    clean = serve(engines(jm, tm, **kw)[0], sub)
+    port, ref = engines(jm, tm, **kw)
+    err = RuntimeError("CUDA error: out of memory")
+    if phase == "dispatch":
+        fired = [_raise_on_calls(mod, "_mixed_step", {3, 6}, err,
+                                 monkeypatch)
+                 for mod in (engine_mod, jax_engine_mod)]
+    else:
+        fired = [_raise_on_calls(eng, "_fetch", {3, 6}, err)
+                 for eng in (port, ref)]
+    got, want = serve(port, sub), serve(ref, sub)
+    assert fired[0] == fired[1] == [3, 6]
+    assert_same(port, got, ref, want)
+    assert port.stats.step_failures == ref.stats.step_failures == 2
+    assert port.stats.retries_total == ref.stats.retries_total > 0
+    assert [s.retries for s in port.request_stats.values()] == \
+        [s.retries for s in ref.request_stats.values()]
+    for a, b in zip(got, clean):
+        np.testing.assert_array_equal(a, b)
+    assert all(s.status == "OK" for s in port.request_stats.values())
+
+
 @pytest.mark.parametrize("phase", ["dispatch", "fetch"])
 def test_cuda_error_is_not_contained(phase, monkeypatch):
-    """A kernel wrapper's launch failure is not a contained fault: it
-    propagates out of run() uncounted (no failure, no retry), the stream
-    still ends, and -- raised in the launch -- the host state is rolled
-    back to before the step."""
+    """A persisting CUDA error IS contained, as the JAX engine contains
+    it, though it is not recovered.  A CUDA error that leaves the context
+    unusable fails every retry:
+    raised in the launch, it rolls the host state back to before the
+    step; each discarded step is booked and, after ``max_step_failures``
+    of them, every request drains ``FAILED`` and ``run()`` returns -- the
+    error never hangs the loop -- with the JAX engine's failures, retries,
+    statuses and tokens under the same failures."""
+    import paddle_ray_tpu.serving.engine as jax_engine_mod
     jm, tm = models(222)
-    port, _ = engines(jm, tm, page_size=PAGE, max_batch=1,
-                      async_dispatch=True)
-    rid = port.submit(R.randint(0, 97, (5,)), 8, stream=True)
-    port.step()
-    port.step()
     err = RuntimeError("paged_ragged_attention kernel launch failed: "
                        "cudaError 700 (an illegal memory access was "
                        "encountered)")
@@ -251,19 +307,35 @@ def test_cuda_error_is_not_contained(phase, monkeypatch):
     def boom(*a, **kw):
         raise err
 
+    prompt = R.randint(0, 97, (5,))
+    port, ref = engines(jm, tm, page_size=PAGE, max_batch=1,
+                        async_dispatch=True, max_step_failures=3)
+    rids = [eng.submit(prompt, 8, stream=True) for eng in (port, ref)]
+    for eng in (port, ref):
+        eng.step()
+        eng.step()
     if phase == "dispatch":
-        slot = port._slots[0]
-        before = (slot.length, len(slot.pages), slot.inflight_emits)
         monkeypatch.setattr(engine_mod, "paged_ragged_attention", boom)
-        with pytest.raises(RuntimeError, match="cudaError 700"):
-            port._dispatch(*port._schedule())
-        assert (slot.length, len(slot.pages), slot.inflight_emits) == before
+        monkeypatch.setattr(jax_engine_mod, "_mixed_step", boom)
+        for eng in (port, ref):
+            slot = eng._slots[0]
+            before = (slot.length, len(slot.pages), slot.inflight_emits)
+            with pytest.raises(RuntimeError, match="cudaError 700"):
+                eng._dispatch(*eng._schedule())
+            assert (slot.length, len(slot.pages),
+                    slot.inflight_emits) == before
     else:
-        port._fetch = types.MethodType(lambda self, inf: boom(), port)
-    with pytest.raises(RuntimeError, match="cudaError 700"):
-        port.run()
-    assert port.stats.step_failures == 0 and port.stats.retries_total == 0
-    assert len(drain_stream(port.stream(rid))) < 8
+        for eng in (port, ref):
+            eng._fetch = boom
+    outs = [eng.run()[rid] for eng, rid in zip((port, ref), rids)]
+    assert_same(port, outs[:1], ref, outs[1:])
+    for eng, rid in zip((port, ref), rids):
+        assert "cudaError 700" in eng.failed_drain
+        assert eng.stats.step_failures >= 3
+        assert eng.request_stats[rid].status == RequestStatus.FAILED
+        assert len(drain_stream(eng.stream(rid))) < 8
+    assert port.request_stats[rids[0]].retries == \
+        ref.request_stats[rids[1]].retries
 
 
 # ---------------------------------------------------------------------------

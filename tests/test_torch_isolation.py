@@ -94,7 +94,8 @@ def test_package_imports_without_jax():
                 "quantization.quant", "models.generation",
                 "serving.engine", "ops.groupnorm", "models.unet",
                 "nn.init", "ops.fused", "models.bert", "incubate.nn",
-                "ops", "quantization", "weights"):
+                "ops", "quantization", "weights", "checkpoint.manager",
+                "checkpoint.sharded", "train.chaos", "train.loop"):
         assert f"paddle_ray_tpu_torch.{mod}" in imported, mod
 
 
